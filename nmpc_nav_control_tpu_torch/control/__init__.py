@@ -1,0 +1,17 @@
+from nmpc_nav_control_tpu_torch.control.controllers import (
+    CmdVel,
+    ControllerSpec,
+    controller_init,
+    controller_reset,
+    controller_step,
+    make_controller,
+)
+
+__all__ = [
+    "CmdVel",
+    "ControllerSpec",
+    "controller_init",
+    "controller_reset",
+    "controller_step",
+    "make_controller",
+]

@@ -1,0 +1,566 @@
+"""The five sweeps of the batched Mehrotra box-IPM: CUDA kernels + plain torch.
+
+Port of ``nmpc_nav_control_tpu/ops/pallas_ipm.py``.  One IPM iteration is
+four sweeps over the horizon, and a solve ends with one KKT sweep:
+
+  1. ``ipm_bwd_fused``  — backward: bound gaps / primal residuals, sum of
+     s*lam, barrier diagonals, dynamics residual, Riccati factorization and
+     the affine vector recursion;
+  2. ``ipm_fwd_affine`` — forward: affine rollout, slack/multiplier deltas,
+     fraction-to-boundary step, Mehrotra corrector products and the mu_aff
+     coefficients;
+  3. ``ipm_bwd_corr``   — backward: corrector vector recursion;
+  4. ``ipm_fwd_corr``   — forward: corrector rollout, full deltas, step and
+     a per-lane finiteness flag;
+  5. ``ipm_kkt_fused``  — backward: costate recursion, inf-norm of the
+     u-stationarity and the final sum of s*lam.
+
+Layout: every per-stage tensor is batch-minor ``[rows, entries, B]``,
+contiguous (``rows`` = N or N+1); per-lane results are ``[B]``.  A/B arrive
+packed to their structural nonzeros (``pack_sparse``).  The four bound
+groups travel as 4-tuples ordered (x lower, x upper, u lower, u upper); x
+bounds at row k apply to stage k+1.
+
+Each wrapper routes by device: tensors on the CPU go to the plain torch
+version beside it, tensors on a CUDA device go to the hand-written kernel in
+``csrc/ipm_fused.cu`` (one thread per scenario lane, the stage loop inside
+the thread), or the wrapper raises.  There is no fallback between the two.
+The plain versions follow the TPU kernels' conventions so that every output
+is comparable: the cost-to-go carry excludes the stage diagonal, which is
+added when consumed; backward sweeps read Qd/qx/dx at row k+1; the forward
+rollout starts from ``r_init = dx0 - dx[0]``; the fraction-to-boundary
+sentinel is ``_BIG``.  They also run in f64.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import NamedTuple
+
+import torch
+
+from nmpc_nav_control_tpu_torch.ops import _build
+from nmpc_nav_control_tpu_torch.ops.linearize_packed import nz_positions
+
+__all__ = [
+    "SweepConfig",
+    "dense_sparsity",
+    "pack_sparse",
+    "ipm_bwd_fused",
+    "ipm_fwd_affine",
+    "ipm_bwd_corr",
+    "ipm_fwd_corr",
+    "ipm_kkt_fused",
+    "bwd_fused_plain",
+    "fwd_affine_plain",
+    "bwd_corr_plain",
+    "fwd_corr_plain",
+    "kkt_fused_plain",
+    "KERNELS",
+]
+
+_BIG = 3.4e38
+
+# Kernel name -> the TPU kernel it replaces (file:line of the function that
+# reaches pl.pallas_call).
+KERNELS = {
+    "ipm_bwd_fused": "nmpc_nav_control_tpu/ops/pallas_ipm.py:387",
+    "ipm_fwd_affine": "nmpc_nav_control_tpu/ops/pallas_ipm.py:738",
+    "ipm_bwd_corr": "nmpc_nav_control_tpu/ops/pallas_ipm.py:512",
+    "ipm_fwd_corr": "nmpc_nav_control_tpu/ops/pallas_ipm.py:783",
+    "ipm_kkt_fused": "nmpc_nav_control_tpu/ops/pallas_ipm.py:909",
+}
+
+# Compiled specialisations: config name -> its header in csrc/.
+_CUDA_HEADERS = {"diff": "config_diff.cuh", "dense72": "config_dense72.cuh"}
+
+
+def dense_sparsity(nx: int, nu: int):
+    """All-nonzero pattern (the safe default for arbitrary QP data)."""
+    return (tuple(tuple(True for _ in range(nx)) for _ in range(nx)),
+            tuple(tuple(True for _ in range(nu)) for _ in range(nx)))
+
+
+def pack_sparse(x, sp):
+    """[..., n, m] -> [..., nnz] keeping only the structural nonzeros."""
+    m = len(sp[0])
+    idx = [i * m + j for i, j in nz_positions(sp)]
+    return x.reshape(x.shape[:-2] + (-1,))[..., idx]
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepConfig:
+    """Static shape of the sweeps: dims, bounded indices, A/B patterns."""
+
+    nx: int
+    nu: int
+    idxbx: tuple
+    idxbu: tuple
+    asp: tuple
+    bsp: tuple
+
+    @property
+    def nbx(self) -> int:
+        return len(self.idxbx)
+
+    @property
+    def nbu(self) -> int:
+        return len(self.idxbu)
+
+    @property
+    def nnzA(self) -> int:
+        return len(nz_positions(self.asp))
+
+    @property
+    def nnzB(self) -> int:
+        return len(nz_positions(self.bsp))
+
+    @functools.cached_property
+    def cuda_config(self) -> str:
+        """Name of the compiled specialisation for this shape; raises if none."""
+        key = (self.nx, self.nu, self.idxbx, self.idxbu, self.asp, self.bsp)
+        for name, header in _CUDA_HEADERS.items():
+            if _build.header_config(header) == key:
+                return name
+        raise NotImplementedError(
+            f"no CUDA specialisation for nx={self.nx} nu={self.nu} "
+            f"idxbx={self.idxbx} idxbu={self.idxbu} with this A/B pattern; "
+            "add a csrc/config_*.cuh header and instantiate it")
+
+
+class BwdFusedOut(NamedTuple):
+    K: torch.Tensor        # [N, nu*nx, B] row-major gain
+    L: torch.Tensor        # [N, nu(nu+1)/2, B] Cholesky of Quu, lower row-major
+    Pc: torch.Tensor       # [N, nx, B] P_{k+1} r_dyn_k
+    rdyn: torch.Tensor     # [N, nx, B] A dx + B du + c - dx_next
+    kff: torch.Tensor      # [N, nu, B] affine feed-forward
+    rp: tuple              # 4 x [N, nb, B] primal residuals gap - s
+    musum: torch.Tensor    # [B] sum of s*lam over all constraints
+
+
+class FwdAffineOut(NamedTuple):
+    corr: tuple            # 4 x [N, nb, B] products ds_aff * dl_aff
+    alpha: torch.Tensor    # [B] fraction-to-boundary step
+    c12: torch.Tensor      # [2, B]: mu_aff = (musum + a c1 + a^2 c2) / n_con
+
+
+class FwdCorrOut(NamedTuple):
+    ddx: torch.Tensor      # [N, nx, B] state deltas, rows 0..N-1
+    ddu: torch.Tensor      # [N, nu, B]
+    ddx_N: torch.Tensor    # [nx, B] terminal state delta
+    ds: tuple              # 4 x [N, nb, B]
+    dl: tuple              # 4 x [N, nb, B]
+    alpha: torch.Tensor    # [B]
+    finite: torch.Tensor   # [B] 1.0 where every delta is finite
+
+
+class KKTOut(NamedTuple):
+    kkt: torch.Tensor      # [B] inf-norm of the u-stationarity residual
+    musum: torch.Tensor    # [B]
+
+
+# --------------------------------------------------------------------------- #
+# Routing and argument checks
+# --------------------------------------------------------------------------- #
+
+
+def _on_cuda(tensors) -> bool:
+    """True for all-CUDA tensors, False for all-CPU; raises otherwise."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"sweep operands on several devices: {devices}")
+    dev = devices.pop()
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"no sweep implementation for device {dev}")
+
+
+def _check(named_shapes) -> None:
+    for name, t, shape in named_shapes:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: CUDA sweeps take float32, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous")
+
+
+def _groups(cfg, N, B, prefix, tensors):
+    sizes = (cfg.nbx, cfg.nbx, cfg.nbu, cfg.nbu)
+    return [(f"{prefix}_{g}", t, (N, n, B))
+            for g, t, n in zip(("xl", "xu", "ul", "uu"), tensors, sizes)]
+
+
+def _empty_groups(cfg, N, B, like):
+    return tuple(torch.empty((N, n, B), dtype=like.dtype, device=like.device)
+                 for n in (cfg.nbx, cfg.nbx, cfg.nbu, cfg.nbu))
+
+
+# --------------------------------------------------------------------------- #
+# Plain torch algebra (batch-first per stage: [rows, B, e])
+# --------------------------------------------------------------------------- #
+
+
+def _bf(x):
+    """[rows, e, B] -> [rows, B, e] view."""
+    return x.mT
+
+
+def _dense(packed, sp):
+    """Packed [N, nnz, B] -> dense [N, B, n, m] with zeros off the pattern."""
+    n, m = len(sp), len(sp[0])
+    N, _, B = packed.shape
+    out = packed.new_zeros((N, n * m, B))
+    out[:, [i * m + j for i, j in nz_positions(sp)]] = packed
+    return _bf(out).reshape(N, B, n, m)
+
+
+def _chol(Q):
+    """Cholesky factor of [..., n, n] (lower triangle read).  A matrix that
+    is not positive definite gives an all-NaN factor, as the kernels' IEEE
+    sqrt of a non-positive pivot poisons every later entry."""
+    L, info = torch.linalg.cholesky_ex(Q)
+    return torch.where((info == 0)[..., None, None], L, torch.nan)
+
+
+def _lower_to_sym(M):
+    """Symmetric matrix from the lower triangle of M (the carry stores only
+    the lower triangle)."""
+    return torch.tril(M) + torch.tril(M, -1).mT
+
+
+def _grads(cfg, Qd, qx, dx, Rd, qu, du, le):
+    """Stationarity gradients at consumption rows (batch-first):
+    gx_{k+1} = Qd dx + qx + sel'(le_xu - le_xl), gu_k = Rd du + qu +
+    sel'(le_uu - le_ul)."""
+    ibx, ibu = list(cfg.idxbx), list(cfg.idxbu)
+    gx = Qd[1:] * dx[1:] + qx[1:]
+    gx[..., ibx] = gx[..., ibx] + (le[1] - le[0])
+    gu = Rd * du + qu
+    gu[..., ibu] = gu[..., ibu] + (le[3] - le[2])
+    return gx, gu
+
+
+def _col(x):
+    return x.unsqueeze(-1)
+
+
+def _vector_bwd(Ad, Bd, K, L, Pc, gx, gu):
+    """Backward vector recursion with the diagonal-free carry:
+    tmp = p + gx + Pc, qu_bar = gu + B' tmp, kff = -(L L')^-1 qu_bar,
+    p <- A' tmp + K' qu_bar.  Operands [N, B, ...]; returns kff [N, B, nu]."""
+    AT, BT, KT = Ad.mT, Bd.mT, K.mT
+    gx, gu, Pc = _col(gx), _col(gu), _col(Pc)
+    p = torch.zeros_like(gx[0])
+    sol = [None] * gu.shape[0]
+    for k in reversed(range(gu.shape[0])):
+        tmp = p + gx[k] + Pc[k]
+        qub = gu[k] + BT[k] @ tmp
+        sol[k] = torch.cholesky_solve(qub, L[k])
+        p = AT[k] @ tmp + KT[k] @ qub
+    return -torch.stack(sol).squeeze(-1)
+
+
+def _unpack_L(L, nu):
+    """[N, ntri, B] lower row-major -> [N, B, nu, nu]."""
+    N, _, B = L.shape
+    out = L.new_zeros((N, B, nu, nu))
+    r, c = torch.tril_indices(nu, nu)
+    out[:, :, r, c] = _bf(L)
+    return out
+
+
+def _pack_L(L):
+    """[N, B, nu, nu] -> [N, ntri, B] lower row-major."""
+    nu = L.shape[-1]
+    r, c = torch.tril_indices(nu, nu)
+    return L[:, :, r, c].transpose(1, 2).contiguous()
+
+
+def _sum_sl(s, lam):
+    """Per-lane sum of s*lam over the four [N, B, nb] groups -> [B]."""
+    return sum((si * li).sum((0, 2)) for si, li in zip(s, lam))
+
+
+def _to_bm(x):
+    """[rows, B, e] -> contiguous [rows, e, B]."""
+    return x.mT.contiguous()
+
+
+def bwd_fused_plain(cfg, A, Bm, Qd, Rd, qx, qu, c, dx, du, s, lam, bnd, *,
+                    reg, d_cap) -> BwdFusedOut:
+    """Plain version of ``ipm_bwd_fused`` (same arguments and outputs)."""
+    ibx, ibu = list(cfg.idxbx), list(cfg.idxbu)
+    Ad, Bd = _dense(A, cfg.asp), _dense(Bm, cfg.bsp)
+    Qd, Rd, qx, qu, c, dx, du = map(_bf, (Qd, Rd, qx, qu, c, dx, du))
+    s, lam, bnd = [tuple(map(_bf, g)) for g in (s, lam, bnd)]
+    lbx, ubx, lbu, ubu = bnd
+    zx, zu = dx[1:][..., ibx], du[..., ibu]
+    rp = (zx - lbx - s[0], ubx - zx - s[1], zu - lbu - s[2], ubu - zu - s[3])
+    musum = _sum_sl(s, lam)
+
+    # Barrier diagonals on the consumed rows: state cost of stage k+1,
+    # input cost of stage k.
+    Dx = torch.clamp(lam[0] / s[0] + lam[1] / s[1], max=d_cap)
+    Du = torch.clamp(lam[2] / s[2] + lam[3] / s[3], max=d_cap)
+    qbar = Qd[1:].clone()
+    qbar[..., ibx] = qbar[..., ibx] + Dx
+    rbar = Rd + reg
+    rbar[..., ibu] = rbar[..., ibu] + Du
+
+    rdyn = c - dx[1:] + (Ad @ _col(dx[:-1])).squeeze(-1) + (Bd @ _col(du)).squeeze(-1)
+    le = tuple(-(l_ / s_) * r_ for l_, s_, r_ in zip(lam, s, rp))
+    gx, gu = _grads(cfg, Qd, qx, dx, Rd, qu, du, le)
+
+    # Riccati factorization; P_core excludes the stage diagonal, which is
+    # added where it is consumed.
+    N = c.shape[0]
+    AT, BT = Ad.mT, Bd.mT
+    Qdiag, Rdiag, r_col = torch.diag_embed(qbar), torch.diag_embed(rbar), _col(rdyn)
+    P_core = torch.zeros_like(Ad[0])
+    Ks, Ls, Pcs = [None] * N, [None] * N, [None] * N
+    for k in reversed(range(N)):
+        P = P_core + Qdiag[k]
+        Pcs[k] = P @ r_col[k]
+        PA = P @ Ad[k]
+        Qux = BT[k] @ PA
+        Ls[k] = _chol(BT[k] @ (P @ Bd[k]) + Rdiag[k])
+        Ks[k] = -torch.cholesky_solve(Qux, Ls[k])
+        P_core = _lower_to_sym(AT[k] @ PA + Qux.mT @ Ks[k])
+    K, L, Pc = torch.stack(Ks), torch.stack(Ls), torch.stack(Pcs).squeeze(-1)
+    kff = _vector_bwd(Ad, Bd, K, L, Pc, gx, gu)
+    return BwdFusedOut(
+        K=K.reshape(N, -1, cfg.nu * cfg.nx).transpose(1, 2).contiguous(),
+        L=_pack_L(L), Pc=_to_bm(Pc), rdyn=_to_bm(rdyn), kff=_to_bm(kff),
+        rp=tuple(map(_to_bm, rp)), musum=musum)
+
+
+def _rollout(Ad, Bd, K, kff, rdyn, r_init):
+    """du_k = K dx_k + kff_k, dx_{k+1} = A dx + B du + r_dyn from r_init.
+    Returns dxs [N+1, B, nx], dus [N, B, nu]."""
+    kff, rdyn = _col(kff), _col(rdyn)
+    dx = _col(r_init)
+    dxs, dus = [dx], []
+    for k in range(kff.shape[0]):
+        du = kff[k] + K[k] @ dx
+        dx = rdyn[k] + Ad[k] @ dx + Bd[k] @ du
+        dxs.append(dx)
+        dus.append(du)
+    return torch.stack(dxs).squeeze(-1), torch.stack(dus).squeeze(-1)
+
+
+def _fwd_plain(cfg, A, Bm, K, kff, rdyn, r_init, s, lam, rp, corr, sigma_mu,
+               tau, mode):
+    ibx, ibu = list(cfg.idxbx), list(cfg.idxbu)
+    N = kff.shape[0]
+    Ad, Bd = _dense(A, cfg.asp), _dense(Bm, cfg.bsp)
+    Kd = _bf(K).reshape(N, -1, cfg.nu, cfg.nx)
+    dxs, dus = _rollout(Ad, Bd, Kd, _bf(kff), _bf(rdyn), r_init.transpose(0, 1))
+    s, lam, rp = [tuple(map(_bf, g)) for g in (s, lam, rp)]
+    dz = (dxs[1:][..., ibx], dxs[1:][..., ibx], dus[..., ibu], dus[..., ibu])
+    if mode == "corr":
+        sm = sigma_mu[:, None]
+        le = [(sm - _bf(c_)) / s_ - (l_ / s_) * r_
+              for s_, l_, r_, c_ in zip(s, lam, rp, corr)]
+    else:
+        le = [-(l_ / s_) * r_ for s_, l_, r_ in zip(s, lam, rp)]
+    ds, dl = [], []
+    for sign, s_, l_, r_, le_, dz_ in zip((1, -1, 1, -1), s, lam, rp, le, dz):
+        ds.append(r_ + sign * dz_)
+        dl.append(-sign * (l_ / s_) * dz_ + le_ - l_)
+
+    def ratio_min(v, dv):
+        neg = dv < 0
+        r = torch.where(neg, -v / torch.where(neg, dv, -1.0), _BIG)
+        return r.amin((0, 2))
+
+    m = torch.full_like(r_init[0], _BIG)
+    for v, dv in zip(s + lam, ds + dl):
+        m = torch.minimum(m, ratio_min(v, dv))
+    alpha = torch.clamp(tau * m, max=1.0)
+    if mode == "affine":
+        c1 = sum((s_ * dl_ + l_ * ds_).sum((0, 2)) for s_, l_, ds_, dl_ in zip(s, lam, ds, dl))
+        c2 = sum((ds_ * dl_).sum((0, 2)) for ds_, dl_ in zip(ds, dl))
+        return FwdAffineOut(corr=tuple(_to_bm(a * b) for a, b in zip(ds, dl)),
+                            alpha=alpha, c12=torch.stack([c1, c2]))
+    finite = torch.isfinite(dus).all(-1).all(0) & torch.isfinite(dxs[1:]).all(-1).all(0)
+    for t in ds + dl:
+        finite = finite & torch.isfinite(t).all(-1).all(0)
+    return FwdCorrOut(ddx=_to_bm(dxs[:-1]), ddu=_to_bm(dus),
+                      ddx_N=dxs[-1].transpose(0, 1).contiguous(),
+                      ds=tuple(map(_to_bm, ds)), dl=tuple(map(_to_bm, dl)),
+                      alpha=alpha, finite=finite.to(alpha.dtype))
+
+
+def fwd_affine_plain(cfg, A, Bm, K, kff, rdyn, r_init, s, lam, rp, *,
+                     tau) -> FwdAffineOut:
+    """Plain version of ``ipm_fwd_affine``."""
+    return _fwd_plain(cfg, A, Bm, K, kff, rdyn, r_init, s, lam, rp, None, None,
+                      tau, "affine")
+
+
+def fwd_corr_plain(cfg, A, Bm, K, kff, rdyn, r_init, s, lam, rp, corr,
+                   sigma_mu, *, tau) -> FwdCorrOut:
+    """Plain version of ``ipm_fwd_corr``."""
+    return _fwd_plain(cfg, A, Bm, K, kff, rdyn, r_init, s, lam, rp, corr,
+                      sigma_mu, tau, "corr")
+
+
+def bwd_corr_plain(cfg, A, Bm, K, L, Pc, Qd, qx, dx, Rd, qu, du, s, lam, rp,
+                   corr, sigma_mu):
+    """Plain version of ``ipm_bwd_corr``; returns kff_c [N, nu, B]."""
+    N = K.shape[0]
+    Ad, Bd = _dense(A, cfg.asp), _dense(Bm, cfg.bsp)
+    Kd = _bf(K).reshape(N, -1, cfg.nu, cfg.nx)
+    sm = sigma_mu[:, None]
+    le = tuple((sm - _bf(c_)) / _bf(s_) - (_bf(l_) / _bf(s_)) * _bf(r_)
+               for s_, l_, r_, c_ in zip(s, lam, rp, corr))
+    gx, gu = _grads(cfg, *map(_bf, (Qd, qx, dx, Rd, qu, du)), le)
+    kff = _vector_bwd(Ad, Bd, Kd, _unpack_L(L, cfg.nu), _bf(Pc), gx, gu)
+    return _to_bm(kff)
+
+
+def kkt_fused_plain(cfg, A, Bm, Qd, qx, dx, Rd, qu, du, lam, s) -> KKTOut:
+    """Plain version of ``ipm_kkt_fused``: costate recursion
+    nu_{k+1} = gx_{k+1} + A_{k+1}' nu_{k+2}, ru_k = gu_k + B_k' nu_{k+1}."""
+    Ad, Bd = _dense(A, cfg.asp), _dense(Bm, cfg.bsp)
+    lam_b = tuple(map(_bf, lam))
+    gx, gu = _grads(cfg, *map(_bf, (Qd, qx, dx, Rd, qu, du)), lam_b)
+    N = gu.shape[0]
+    AT, gx = Ad.mT, _col(gx)
+    c = torch.zeros_like(gx[0])
+    nus = [None] * N
+    for k in reversed(range(N)):
+        nus[k] = gx[k] + c
+        c = AT[k] @ nus[k]
+    ru = gu + (Bd.mT @ torch.stack(nus)).squeeze(-1)
+    return KKTOut(kkt=ru.abs().amax((0, 2)),
+                  musum=_sum_sl(tuple(map(_bf, s)), lam_b))
+
+
+# --------------------------------------------------------------------------- #
+# Wrappers: CPU -> plain version, CUDA -> kernel
+# --------------------------------------------------------------------------- #
+
+
+def ipm_bwd_fused(cfg: SweepConfig, A, Bm, Qd, Rd, qx, qu, c, dx, du, s, lam,
+                  bnd, *, reg: float, d_cap: float) -> BwdFusedOut:
+    """Fused backward sweep (replaces ``pallas_ipm.ipm_bwd_fused``).
+
+    A [N,nnzA,B], Bm [N,nnzB,B], Qd/qx [N+1,nx,B], Rd/qu [N,nu,B],
+    c [N,nx,B], dx [N+1,nx,B], du [N,nu,B]; s, lam: 4-tuples of slacks and
+    multipliers; bnd: (lbx, ubx, lbu, ubu), each [N, nb, B].
+    """
+    ins = (A, Bm, Qd, Rd, qx, qu, c, dx, du, *s, *lam, *bnd)
+    if not _on_cuda(ins):
+        return bwd_fused_plain(cfg, A, Bm, Qd, Rd, qx, qu, c, dx, du, s, lam,
+                               bnd, reg=reg, d_cap=d_cap)
+    N, nx, B = c.shape
+    nu = cfg.nu
+    _check([("A", A, (N, cfg.nnzA, B)), ("Bm", Bm, (N, cfg.nnzB, B)),
+            ("Qd", Qd, (N + 1, nx, B)), ("Rd", Rd, (N, nu, B)),
+            ("qx", qx, (N + 1, nx, B)), ("qu", qu, (N, nu, B)),
+            ("c", c, (N, nx, B)), ("dx", dx, (N + 1, nx, B)),
+            ("du", du, (N, nu, B))]
+           + _groups(cfg, N, B, "s", s) + _groups(cfg, N, B, "lam", lam)
+           + _groups(cfg, N, B, "bnd", bnd))
+    out = BwdFusedOut(
+        K=c.new_empty((N, nu * nx, B)), L=c.new_empty((N, nu * (nu + 1) // 2, B)),
+        Pc=c.new_empty((N, nx, B)), rdyn=c.new_empty((N, nx, B)),
+        kff=c.new_empty((N, nu, B)), rp=_empty_groups(cfg, N, B, c),
+        musum=c.new_empty((B,)))
+    _build.launch("ipm_bwd_fused", cfg.cuda_config,
+                  [*ins, out.K, out.L, out.Pc, out.rdyn, out.kff, *out.rp, out.musum],
+                  N, B, reg, d_cap)
+    return out
+
+
+def ipm_fwd_affine(cfg: SweepConfig, A, Bm, K, kff, rdyn, r_init, s, lam, rp,
+                   *, tau: float) -> FwdAffineOut:
+    """Affine forward sweep (replaces ``pallas_ipm.ipm_fwd_affine``).
+
+    K [N,nu*nx,B], kff [N,nu,B], rdyn [N,nx,B], r_init [nx,B] = dx0 - dx[0].
+    """
+    ins = (A, Bm, K, kff, rdyn, r_init, *s, *lam, *rp)
+    if not _on_cuda(ins):
+        return fwd_affine_plain(cfg, A, Bm, K, kff, rdyn, r_init, s, lam, rp, tau=tau)
+    N, nx, B = rdyn.shape
+    _check(_fwd_shapes(cfg, N, B, A, Bm, K, kff, rdyn, r_init, s, lam, rp))
+    out = FwdAffineOut(corr=_empty_groups(cfg, N, B, rdyn),
+                       alpha=rdyn.new_empty((B,)), c12=rdyn.new_empty((2, B)))
+    _build.launch("ipm_fwd_affine", cfg.cuda_config,
+                  [*ins, *out.corr, out.alpha, out.c12], N, B, tau)
+    return out
+
+
+def _fwd_shapes(cfg, N, B, A, Bm, K, kff, rdyn, r_init, s, lam, rp):
+    nx, nu = cfg.nx, cfg.nu
+    return ([("A", A, (N, cfg.nnzA, B)), ("Bm", Bm, (N, cfg.nnzB, B)),
+             ("K", K, (N, nu * nx, B)), ("kff", kff, (N, nu, B)),
+             ("rdyn", rdyn, (N, nx, B)), ("r_init", r_init, (nx, B))]
+            + _groups(cfg, N, B, "s", s) + _groups(cfg, N, B, "lam", lam)
+            + _groups(cfg, N, B, "rp", rp))
+
+
+def ipm_bwd_corr(cfg: SweepConfig, A, Bm, K, L, Pc, Qd, qx, dx, Rd, qu, du,
+                 s, lam, rp, corr, sigma_mu):
+    """Corrector backward sweep (replaces ``pallas_ipm.ipm_bwd_corr``);
+    sigma_mu [B].  Returns kff_c [N, nu, B]."""
+    ins = (A, Bm, K, L, Pc, Qd, qx, dx, Rd, qu, du, *s, *lam, *rp, *corr, sigma_mu)
+    if not _on_cuda(ins):
+        return bwd_corr_plain(cfg, A, Bm, K, L, Pc, Qd, qx, dx, Rd, qu, du,
+                              s, lam, rp, corr, sigma_mu)
+    N, _, B = K.shape
+    nx, nu = cfg.nx, cfg.nu
+    _check([("A", A, (N, cfg.nnzA, B)), ("Bm", Bm, (N, cfg.nnzB, B)),
+            ("K", K, (N, nu * nx, B)), ("L", L, (N, nu * (nu + 1) // 2, B)),
+            ("Pc", Pc, (N, nx, B)), ("Qd", Qd, (N + 1, nx, B)),
+            ("qx", qx, (N + 1, nx, B)), ("dx", dx, (N + 1, nx, B)),
+            ("Rd", Rd, (N, nu, B)), ("qu", qu, (N, nu, B)), ("du", du, (N, nu, B)),
+            ("sigma_mu", sigma_mu, (B,))]
+           + _groups(cfg, N, B, "s", s) + _groups(cfg, N, B, "lam", lam)
+           + _groups(cfg, N, B, "rp", rp) + _groups(cfg, N, B, "corr", corr))
+    kff = K.new_empty((N, nu, B))
+    _build.launch("ipm_bwd_corr", cfg.cuda_config, [*ins, kff], N, B)
+    return kff
+
+
+def ipm_fwd_corr(cfg: SweepConfig, A, Bm, K, kff, rdyn, r_init, s, lam, rp,
+                 corr, sigma_mu, *, tau: float) -> FwdCorrOut:
+    """Corrector forward sweep (replaces ``pallas_ipm.ipm_fwd_corr``)."""
+    ins = (A, Bm, K, kff, rdyn, r_init, *s, *lam, *rp, *corr, sigma_mu)
+    if not _on_cuda(ins):
+        return fwd_corr_plain(cfg, A, Bm, K, kff, rdyn, r_init, s, lam, rp,
+                              corr, sigma_mu, tau=tau)
+    N, nx, B = rdyn.shape
+    _check(_fwd_shapes(cfg, N, B, A, Bm, K, kff, rdyn, r_init, s, lam, rp)
+           + _groups(cfg, N, B, "corr", corr) + [("sigma_mu", sigma_mu, (B,))])
+    out = FwdCorrOut(
+        ddx=rdyn.new_empty((N, nx, B)), ddu=rdyn.new_empty((N, cfg.nu, B)),
+        ddx_N=rdyn.new_empty((nx, B)), ds=_empty_groups(cfg, N, B, rdyn),
+        dl=_empty_groups(cfg, N, B, rdyn), alpha=rdyn.new_empty((B,)),
+        finite=rdyn.new_empty((B,)))
+    _build.launch("ipm_fwd_corr", cfg.cuda_config,
+                  [*ins, out.ddx, out.ddu, out.ddx_N, *out.ds, *out.dl,
+                   out.alpha, out.finite], N, B, tau)
+    return out
+
+
+def ipm_kkt_fused(cfg: SweepConfig, A, Bm, Qd, qx, dx, Rd, qu, du, lam,
+                  s) -> KKTOut:
+    """Post-solve KKT sweep (replaces ``pallas_ipm.ipm_kkt_fused``)."""
+    ins = (A, Bm, Qd, qx, dx, Rd, qu, du, *lam, *s)
+    if not _on_cuda(ins):
+        return kkt_fused_plain(cfg, A, Bm, Qd, qx, dx, Rd, qu, du, lam, s)
+    N, nu, B = du.shape
+    nx = cfg.nx
+    _check([("A", A, (N, cfg.nnzA, B)), ("Bm", Bm, (N, cfg.nnzB, B)),
+            ("Qd", Qd, (N + 1, nx, B)), ("qx", qx, (N + 1, nx, B)),
+            ("dx", dx, (N + 1, nx, B)), ("Rd", Rd, (N, nu, B)),
+            ("qu", qu, (N, nu, B)), ("du", du, (N, nu, B))]
+           + _groups(cfg, N, B, "lam", lam) + _groups(cfg, N, B, "s", s))
+    out = KKTOut(kkt=du.new_empty((B,)), musum=du.new_empty((B,)))
+    _build.launch("ipm_kkt_fused", cfg.cuda_config, [*ins, out.kkt, out.musum], N, B)
+    return out
