@@ -6,7 +6,9 @@ JAX package's NamedTuples with their leaves as numpy arrays (``np.asarray``
 of each JAX leaf, batched or not) and build the port's tensors on a device,
 and turn a port state back into numpy leaves under the same field names, so
 ``nmpc_nav_control_tpu.rti.RTIState(*rti_state_to_numpy(s))`` rebuilds the
-JAX state.  Nothing here imports JAX.
+JAX state.  The functions carry every geometry's data alike (diff, omni4,
+tric); tensors land on the card unless ``device`` says otherwise.  Nothing
+here imports JAX.
 """
 from __future__ import annotations
 
@@ -23,13 +25,13 @@ def _tensor(x, device, dtype):
     return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
 
-def ocp_data_from_numpy(data, device="cpu", dtype=None) -> OCPData:
+def ocp_data_from_numpy(data, device="cuda", dtype=None) -> OCPData:
     """OCPData-like (p, lbx, ubx, lbu, ubu, q_diag, r_diag, qe_diag) -> port
     ``OCPData``; leaves keep their batch axis, if any."""
     return OCPData(*(_tensor(getattr(data, f), device, dtype) for f in OCPData._fields))
 
 
-def rti_state_from_numpy(state, device="cpu", dtype=None) -> RTIState:
+def rti_state_from_numpy(state, device="cuda", dtype=None) -> RTIState:
     """RTIState-like (xs, us, x0_carry) -> port ``RTIState`` with a leading
     batch axis (an unbatched state becomes a batch of one)."""
     xs, us, x0 = (_tensor(getattr(state, f), device, dtype) for f in RTIState._fields)

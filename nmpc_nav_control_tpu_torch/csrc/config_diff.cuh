@@ -3,7 +3,9 @@
 // both inputs.  The patterns are the RK4 stage Jacobians' structural
 // nonzeros as ocp/sparsity.py::detect_jacobian_sparsity finds them
 // (23 of 49 in A, 10 of 14 in B); tests/test_torch_ipm_kernels.py holds
-// them equal.
+// them equal.  The tricycle model (models/tric.py, both variants) has the
+// same dimensions, bounded indices and patterns, so this specialisation
+// serves it too (tests/test_torch_leaf.py holds that).
 #pragma once
 #include "pattern.cuh"
 

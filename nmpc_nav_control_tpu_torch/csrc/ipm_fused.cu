@@ -43,6 +43,7 @@
 
 #include "config_dense72.cuh"
 #include "config_diff.cuh"
+#include "config_omni4.cuh"
 
 namespace {
 
@@ -834,3 +835,4 @@ int launch_kkt(void* const* ptrs, int n, int N, int B, cudaStream_t stream) {
 
 IPM_EXPORT(diff, DiffConfig)
 IPM_EXPORT(dense72, Dense72Config)
+IPM_EXPORT(omni4, Omni4Config)

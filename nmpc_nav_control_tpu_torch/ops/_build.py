@@ -2,7 +2,8 @@
 
 The sources in ``csrc/`` are compiled at first use with ``nvcc`` into a
 shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds), loaded with ctypes.  The library lands in
+takes seconds), loaded with ctypes: one ``nvcc`` per ``.cu`` file, all
+started together, then one link.  The library lands in
 ``build/kernels/<hash of sources and flags>/`` at the root of the checkout,
 so an edit to any source rebuilds it.  Every exported launcher has one
 signature::
@@ -14,7 +15,8 @@ and returns ``cudaGetLastError()`` after the launch.
 
 Each wrapper that launches a kernel adds one to that kernel's count in
 ``launch_counts()``, and nothing else touches the counts, so a run can show
-which kernels its main path went through.
+which kernels its main path went through.  ``on_cuda`` and ``check`` are the
+wrappers' shared routing and argument checks.
 """
 from __future__ import annotations
 
@@ -35,9 +37,11 @@ import torch
 __all__ = [
     "CSRC",
     "build",
+    "check",
     "header_config",
     "launch",
     "launch_counts",
+    "on_cuda",
     "reset_launch_counts",
 ]
 
@@ -47,8 +51,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # to the 1e10 barrier cap at the 1e-9 slack floor, and the 2x2 Cholesky
 # needs IEEE sqrt and division.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-LIB_NAME = "libipm_fused.so"
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LIB_NAME = "libnmpc_kernels.so"
 
 _counts: collections.Counter = collections.Counter()
 _lib: ctypes.CDLL | None = None
@@ -87,14 +91,30 @@ def build() -> tuple[Path, float]:
         return lib, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
+    nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        tmp_lib = Path(tmp) / LIB_NAME
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp_lib),
-               *[str(s) for s in _sources() if s.suffix == ".cu"]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        jobs = []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = Path(tmp) / f"{src.stem}.o"
+            jobs.append((src, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for src, _, proc in jobs:
+            log.append(f"== nvcc {src.name}\n{proc.communicate()[0]}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if not failed:
+            tmp_lib = Path(tmp) / LIB_NAME
+            link = subprocess.run([nvcc, "-shared", "-o", str(tmp_lib),
+                                   *[str(obj) for _, obj, _ in jobs]],
+                                  capture_output=True, text=True)
+            log.append(f"== link\n{link.stdout}{link.stderr}")
+            if link.returncode != 0:
+                failed.append("link")
+        (out_dir / "build.log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
         os.replace(tmp_lib, lib)
     return lib, time.perf_counter() - t0
 
@@ -111,7 +131,7 @@ def launch(kernel: str, config: str, tensors, N: int, B: int,
     """Launch ``<kernel>_<config>`` on the current stream; raise on error.
 
     ``tensors``: inputs then outputs, in the order of the kernel's argument
-    struct in ``csrc/ipm_fused.cu``; the caller has checked them.
+    struct in its ``csrc/*.cu`` source; the caller has checked them.
     """
     lib = _load()
     name = f"{kernel}_{config}"
@@ -128,6 +148,31 @@ def launch(kernel: str, config: str, tensors, N: int, B: int,
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
     _counts[kernel] += 1
+
+
+def on_cuda(tensors) -> bool:
+    """True for all-CUDA tensors, False for all-CPU; raises otherwise."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"kernel operands on several devices: {devices}")
+    dev = devices.pop()
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"no kernel implementation for device {dev}")
+
+
+def check(named_shapes) -> None:
+    """Raise unless every (name, tensor, shape) is float32, of that shape and
+    contiguous: what the CUDA kernels take."""
+    for name, t, shape in named_shapes:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: CUDA kernels take float32, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous")
 
 
 def launch_counts() -> dict:

@@ -71,8 +71,10 @@ KERNELS = {
     "ipm_kkt_fused": "nmpc_nav_control_tpu/ops/pallas_ipm.py:909",
 }
 
-# Compiled specialisations: config name -> its header in csrc/.
-_CUDA_HEADERS = {"diff": "config_diff.cuh", "dense72": "config_dense72.cuh"}
+# Compiled specialisations: config name -> its header in csrc/.  The tric
+# model's shape and patterns equal diff's, so "diff" serves both.
+_CUDA_HEADERS = {"diff": "config_diff.cuh", "dense72": "config_dense72.cuh",
+                 "omni4": "config_omni4.cuh"}
 
 
 def dense_sparsity(nx: int, nu: int):
@@ -162,29 +164,6 @@ class KKTOut(NamedTuple):
 # --------------------------------------------------------------------------- #
 # Routing and argument checks
 # --------------------------------------------------------------------------- #
-
-
-def _on_cuda(tensors) -> bool:
-    """True for all-CUDA tensors, False for all-CPU; raises otherwise."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"sweep operands on several devices: {devices}")
-    dev = devices.pop()
-    if dev.type == "cuda":
-        return True
-    if dev.type == "cpu":
-        return False
-    raise ValueError(f"no sweep implementation for device {dev}")
-
-
-def _check(named_shapes) -> None:
-    for name, t, shape in named_shapes:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: CUDA sweeps take float32, got {t.dtype}")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: must be contiguous")
 
 
 def _groups(cfg, N, B, prefix, tensors):
@@ -454,12 +433,12 @@ def ipm_bwd_fused(cfg: SweepConfig, A, Bm, Qd, Rd, qx, qu, c, dx, du, s, lam,
     multipliers; bnd: (lbx, ubx, lbu, ubu), each [N, nb, B].
     """
     ins = (A, Bm, Qd, Rd, qx, qu, c, dx, du, *s, *lam, *bnd)
-    if not _on_cuda(ins):
+    if not _build.on_cuda(ins):
         return bwd_fused_plain(cfg, A, Bm, Qd, Rd, qx, qu, c, dx, du, s, lam,
                                bnd, reg=reg, d_cap=d_cap)
     N, nx, B = c.shape
     nu = cfg.nu
-    _check([("A", A, (N, cfg.nnzA, B)), ("Bm", Bm, (N, cfg.nnzB, B)),
+    _build.check([("A", A, (N, cfg.nnzA, B)), ("Bm", Bm, (N, cfg.nnzB, B)),
             ("Qd", Qd, (N + 1, nx, B)), ("Rd", Rd, (N, nu, B)),
             ("qx", qx, (N + 1, nx, B)), ("qu", qu, (N, nu, B)),
             ("c", c, (N, nx, B)), ("dx", dx, (N + 1, nx, B)),
@@ -484,10 +463,10 @@ def ipm_fwd_affine(cfg: SweepConfig, A, Bm, K, kff, rdyn, r_init, s, lam, rp,
     K [N,nu*nx,B], kff [N,nu,B], rdyn [N,nx,B], r_init [nx,B] = dx0 - dx[0].
     """
     ins = (A, Bm, K, kff, rdyn, r_init, *s, *lam, *rp)
-    if not _on_cuda(ins):
+    if not _build.on_cuda(ins):
         return fwd_affine_plain(cfg, A, Bm, K, kff, rdyn, r_init, s, lam, rp, tau=tau)
     N, nx, B = rdyn.shape
-    _check(_fwd_shapes(cfg, N, B, A, Bm, K, kff, rdyn, r_init, s, lam, rp))
+    _build.check(_fwd_shapes(cfg, N, B, A, Bm, K, kff, rdyn, r_init, s, lam, rp))
     out = FwdAffineOut(corr=_empty_groups(cfg, N, B, rdyn),
                        alpha=rdyn.new_empty((B,)), c12=rdyn.new_empty((2, B)))
     _build.launch("ipm_fwd_affine", cfg.cuda_config,
@@ -509,12 +488,12 @@ def ipm_bwd_corr(cfg: SweepConfig, A, Bm, K, L, Pc, Qd, qx, dx, Rd, qu, du,
     """Corrector backward sweep (replaces ``pallas_ipm.ipm_bwd_corr``);
     sigma_mu [B].  Returns kff_c [N, nu, B]."""
     ins = (A, Bm, K, L, Pc, Qd, qx, dx, Rd, qu, du, *s, *lam, *rp, *corr, sigma_mu)
-    if not _on_cuda(ins):
+    if not _build.on_cuda(ins):
         return bwd_corr_plain(cfg, A, Bm, K, L, Pc, Qd, qx, dx, Rd, qu, du,
                               s, lam, rp, corr, sigma_mu)
     N, _, B = K.shape
     nx, nu = cfg.nx, cfg.nu
-    _check([("A", A, (N, cfg.nnzA, B)), ("Bm", Bm, (N, cfg.nnzB, B)),
+    _build.check([("A", A, (N, cfg.nnzA, B)), ("Bm", Bm, (N, cfg.nnzB, B)),
             ("K", K, (N, nu * nx, B)), ("L", L, (N, nu * (nu + 1) // 2, B)),
             ("Pc", Pc, (N, nx, B)), ("Qd", Qd, (N + 1, nx, B)),
             ("qx", qx, (N + 1, nx, B)), ("dx", dx, (N + 1, nx, B)),
@@ -531,11 +510,11 @@ def ipm_fwd_corr(cfg: SweepConfig, A, Bm, K, kff, rdyn, r_init, s, lam, rp,
                  corr, sigma_mu, *, tau: float) -> FwdCorrOut:
     """Corrector forward sweep (replaces ``pallas_ipm.ipm_fwd_corr``)."""
     ins = (A, Bm, K, kff, rdyn, r_init, *s, *lam, *rp, *corr, sigma_mu)
-    if not _on_cuda(ins):
+    if not _build.on_cuda(ins):
         return fwd_corr_plain(cfg, A, Bm, K, kff, rdyn, r_init, s, lam, rp,
                               corr, sigma_mu, tau=tau)
     N, nx, B = rdyn.shape
-    _check(_fwd_shapes(cfg, N, B, A, Bm, K, kff, rdyn, r_init, s, lam, rp)
+    _build.check(_fwd_shapes(cfg, N, B, A, Bm, K, kff, rdyn, r_init, s, lam, rp)
            + _groups(cfg, N, B, "corr", corr) + [("sigma_mu", sigma_mu, (B,))])
     out = FwdCorrOut(
         ddx=rdyn.new_empty((N, nx, B)), ddu=rdyn.new_empty((N, cfg.nu, B)),
@@ -552,11 +531,11 @@ def ipm_kkt_fused(cfg: SweepConfig, A, Bm, Qd, qx, dx, Rd, qu, du, lam,
                   s) -> KKTOut:
     """Post-solve KKT sweep (replaces ``pallas_ipm.ipm_kkt_fused``)."""
     ins = (A, Bm, Qd, qx, dx, Rd, qu, du, *lam, *s)
-    if not _on_cuda(ins):
+    if not _build.on_cuda(ins):
         return kkt_fused_plain(cfg, A, Bm, Qd, qx, dx, Rd, qu, du, lam, s)
     N, nu, B = du.shape
     nx = cfg.nx
-    _check([("A", A, (N, cfg.nnzA, B)), ("Bm", Bm, (N, cfg.nnzB, B)),
+    _build.check([("A", A, (N, cfg.nnzA, B)), ("Bm", Bm, (N, cfg.nnzB, B)),
             ("Qd", Qd, (N + 1, nx, B)), ("qx", qx, (N + 1, nx, B)),
             ("dx", dx, (N + 1, nx, B)), ("Rd", Rd, (N, nu, B)),
             ("qu", qu, (N, nu, B)), ("du", du, (N, nu, B))]

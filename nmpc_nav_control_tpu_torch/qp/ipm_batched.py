@@ -32,16 +32,9 @@ from nmpc_nav_control_tpu_torch.ops.ipm_fused import (
     ipm_kkt_fused,
     pack_sparse,
 )
-from nmpc_nav_control_tpu_torch.qp.ipm import BoxQP, IPMSolution, _Iterate
+from nmpc_nav_control_tpu_torch.qp.ipm import BoxQP, IPMSolution, _guards, _Iterate
 
 __all__ = ["solve_box_qp_batched"]
-
-
-def _guards(dtype):
-    """(mu_min, slack floor, barrier cap) for the dtype."""
-    if dtype == torch.float64:
-        return 1e-14, 1e-11, 1e14
-    return 1e-7, 1e-9, 1e10
 
 
 def _bm(x):

@@ -12,13 +12,21 @@ scenario lane of a batch:
      from the previous solution (``RTIState``);
   5. u0, the integrated reference entries, and the stage-1 carry.
 
-Every tensor has a leading batch axis [B, ...] in the JAX package's layout;
-the linearization writes the packed batch-minor operands of the fused IPM
-directly, so the dense [B, N, nx, nx] Jacobians never exist.
+Every tensor has a leading batch axis [B, ...] in the JAX package's layout.
+The linearization writes the IPM's batch-minor operands directly, so the
+[B, N, nx, nx] Jacobians never exist.  Which IPM runs follows
+``NMPC_TPU_TILED_IPM`` (read per call), as in the JAX package: "1", the
+default, packs A/B to their structural nonzeros for the fused sweeps
+(``qp/ipm_batched.py``); otherwise the dense branch packs them with the
+dense pattern, row-major, which is the layout of the Riccati-based solve
+(``qp/ipm.py::solve_box_qp_serial``).  The JAX package's dense branch
+linearizes with ``jacfwd``; the complex step here gives the same Jacobians
+to rounding for these analytic models.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
@@ -26,7 +34,7 @@ import torch
 from nmpc_nav_control_tpu_torch.ocp.spec import OCPData, OCPDims
 from nmpc_nav_control_tpu_torch.ops.ipm_fused import dense_sparsity
 from nmpc_nav_control_tpu_torch.ops.linearize_packed import linearize_packed
-from nmpc_nav_control_tpu_torch.qp.ipm import BoxQP
+from nmpc_nav_control_tpu_torch.qp.ipm import BoxQP, _tiled_ipm_ok, solve_box_qp_serial
 from nmpc_nav_control_tpu_torch.qp.ipm_batched import solve_box_qp_batched
 from nmpc_nav_control_tpu_torch.utils.angles import unwrap_angle
 
@@ -65,8 +73,9 @@ class RTIStats(NamedTuple):
     ok: torch.Tensor        # [B] bool: solution finite
 
 
-def rti_init(dims: OCPDims, batch: int, dtype=torch.float32, device="cpu") -> RTIState:
-    """Fresh solver state for ``batch`` lanes (zeros)."""
+def rti_init(dims: OCPDims, batch: int, dtype=torch.float32, device="cuda") -> RTIState:
+    """Fresh solver state for ``batch`` lanes (zeros), on the card unless
+    ``device`` says otherwise."""
     m = dims.model
 
     def zeros(*shape):
@@ -146,13 +155,17 @@ def rti_step(config: RTIConfig, data: OCPData, state: RTIState, x0, traj_xy_thet
     lbx_d, ubx_d = data.lbx[:, None] - zx, data.ubx[:, None] - zx
     lbu_d, ubu_d = data.lbu[:, None] - zu, data.ubu[:, None] - zu
 
-    spars = config.spars if config.spars is not None else dense_sparsity(nx, nu)
+    if _tiled_ipm_ok():
+        spars = config.spars if config.spars is not None else dense_sparsity(nx, nu)
+        solve = functools.partial(solve_box_qp_batched, spars=spars)
+    else:
+        spars, solve = dense_sparsity(nx, nu), solve_box_qp_serial
     A, Bm, x_next = linearize_packed(model.f, dt, xs_lin, state.us, data.p, *spars)
     c = x_next - xs_lin[:, 1:].permute(1, 2, 0)
     qp = BoxQP(A=None, B=None, c=None, Qd=Qd, qx=qx, Rd=Rd, qu=qu,
                dx0=x0 - xs_lin[:, 0], lbx=lbx_d, ubx=ubx_d, lbu=lbu_d, ubu=ubu_d)
-    sol = solve_box_qp_batched(qp, model.idxbx, model.idxbu, iters=config.ipm_iters,
-                               reg=config.ipm_reg, spars=spars, packed_abc=(A, Bm, c))
+    sol = solve(qp, model.idxbx, model.idxbu, iters=config.ipm_iters,
+                reg=config.ipm_reg, packed_abc=(A, Bm, c))
 
     # Expand, integrate the references, carry stage 1.
     xs_new = xs_lin + sol.dxs

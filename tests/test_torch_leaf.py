@@ -1,8 +1,10 @@
 """Leaf modules of the torch port against their JAX counterparts, in f64.
 
-Angles, the diff model and its kinematic maps, RK4, the stage
-linearization, the rollout, OCPDims and the structural sparsity detection:
-the same numpy inputs through both packages, agreement to f64 rounding.
+Angles, the diff, omni4 and tric models and their kinematic maps, RK4, the
+stage linearization, the rollout, OCPDims and the structural sparsity
+detection: the same numpy inputs through both packages, agreement to f64
+rounding.  Also: the compile-time patterns of the CUDA specialisations equal
+the patterns detected for each model.
 """
 import jax
 import jax.numpy as jnp
@@ -11,14 +13,17 @@ import pytest
 import torch
 
 from nmpc_nav_control_tpu.models import diff as jdiff
+from nmpc_nav_control_tpu.models import omni4 as jomni4
+from nmpc_nav_control_tpu.models import tric as jtric
 from nmpc_nav_control_tpu.ocp import integrator as jint
 from nmpc_nav_control_tpu.ocp.sparsity import detect_jacobian_sparsity as jdetect
 from nmpc_nav_control_tpu.ocp.spec import OCPDims as JOCPDims
 from nmpc_nav_control_tpu.utils import angles as jang
-from nmpc_nav_control_tpu_torch.models import diff
+from nmpc_nav_control_tpu_torch.models import diff, omni4, tric
 from nmpc_nav_control_tpu_torch.ocp import integrator
 from nmpc_nav_control_tpu_torch.ocp.sparsity import detect_jacobian_sparsity
 from nmpc_nav_control_tpu_torch.ocp.spec import OCPDims
+from nmpc_nav_control_tpu_torch.ops._build import header_config
 from nmpc_nav_control_tpu_torch.utils import angles
 
 torch.set_num_threads(1)
@@ -109,3 +114,63 @@ def test_batched_model_evaluation_is_elementwise():
     want = jax.vmap(jax.vmap(lambda a, b: jdiff.f(a, b, _j(P)), in_axes=(1, 1), out_axes=1),
                     in_axes=(1, 1), out_axes=1)(_j(x), _j(u))
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+# geometry -> (port spec, JAX spec, parameters, kernel header, A / B nonzeros)
+GEOMETRIES = {
+    "omni4": (omni4.SPEC, jomni4.SPEC, [0.535, 0.1], "config_omni4.cuh", 41, 20),
+    "tric": (tric.SPEC, jtric.SPEC, [1.05, 0.1, 0.1], "config_diff.cuh", 23, 10),
+    "tric_bug": (tric.SPEC_BUG_COMPAT, jtric.SPEC_BUG_COMPAT, [1.05, 0.1, 0.1],
+                 "config_diff.cuh", 23, 10),
+}
+
+
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+def test_geometry_model_matches_jax(geometry):
+    spec, jspec, p = GEOMETRIES[geometry][:3]
+    rng = np.random.default_rng(5)
+    for _ in range(5):
+        x, u = rng.normal(size=spec.nx), rng.normal(size=spec.nu)
+        np.testing.assert_allclose(spec.f(_t(x), _t(u), _t(p)).numpy(),
+                                   np.asarray(jspec.f(_j(x), _j(u), _j(p))), **TOL)
+    # Elementwise over trailing axes, as linearize_packed evaluates it.
+    x, u = rng.normal(size=(spec.nx, 4, 3)), rng.normal(size=(spec.nu, 4, 3))
+    want = jax.vmap(jax.vmap(lambda a, b: jspec.f(a, b, _j(p)), in_axes=(1, 1), out_axes=1),
+                    in_axes=(1, 1), out_axes=1)(_j(x), _j(u))
+    np.testing.assert_allclose(spec.f(_t(x), _t(u), _t(p)).numpy(), np.asarray(want), **TOL)
+    assert (spec.name, spec.nx, spec.nu, spec.npar, spec.idxbx, spec.idxbu) == (
+        jspec.name, jspec.nx, jspec.nu, jspec.npar, jspec.idxbx, jspec.idxbu)
+
+
+def test_omni4_kinematics_and_params_match_jax():
+    rng = np.random.default_rng(6)
+    v, vn, w = rng.normal(size=(3, 64))
+    for g, r in zip(omni4.direct_kinematics(_t(v), _t(vn), _t(w), 0.535),
+                    jomni4.direct_kinematics(_j(v), _j(vn), _j(w), 0.535)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), **TOL)
+    wheels = rng.normal(size=(4, 64))
+    for g, r in zip(omni4.inverse_kinematics(*map(_t, wheels), 0.535),
+                    jomni4.inverse_kinematics(*map(_j, wheels), 0.535)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), **TOL)
+    np.testing.assert_allclose(omni4.make_params(0.535, 0.1).numpy(),
+                               np.asarray(jomni4.make_params(0.535, 0.1)), **TOL)
+    np.testing.assert_allclose(tric.make_params(1.05, 0.1, 0.2).numpy(),
+                               np.asarray(jtric.make_params(1.05, 0.1, 0.2)), **TOL)
+
+
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+def test_geometry_sparsity_matches_jax_and_kernel_header(geometry):
+    """The detected patterns equal JAX's (41/121 A nonzeros for omni4, 23/49
+    for tric), and the CUDA specialisation that serves the model was
+    compiled for exactly that pattern, for several parameters and steps."""
+    spec, jspec, p, header, nnz_a, nnz_b = GEOMETRIES[geometry]
+    for dtype in ("float32", "float64"):
+        asp, bsp = detect_jacobian_sparsity(spec.f, DT, spec.nx, spec.nu,
+                                            torch.tensor(p, dtype=getattr(torch, dtype)))
+        assert (asp, bsp) == jdetect(jspec.f, DT, spec.nx, spec.nu,
+                                     jnp.asarray(p, getattr(jnp, dtype)))
+        assert (sum(map(sum, asp)), sum(map(sum, bsp))) == (nnz_a, nnz_b)
+    for scale, dt in ((1.0, 0.025), (2.0, 0.0125), (0.5, 0.1)):
+        pats = detect_jacobian_sparsity(spec.f, dt, spec.nx, spec.nu,
+                                        torch.tensor(p) * scale)
+        assert header_config(header) == (spec.nx, spec.nu, spec.idxbx, spec.idxbu, *pats)

@@ -1,8 +1,9 @@
 """The torch port runs where JAX is not installed.
 
 In a subprocess where ``import jax`` fails, the port is imported and one
-batched controller tick runs; and no module of the package names JAX in an
-import.
+batched controller tick runs for each geometry on each IPM route (the fused
+sweeps and the Riccati solve, which between them import every module of the
+package); and no module of the package names JAX in an import.
 """
 import ast
 import os
@@ -17,20 +18,29 @@ PKG = os.path.join(ROOT, "nmpc_nav_control_tpu_torch")
 torch.set_num_threads(1)
 
 SCRIPT = """
+import os
 import sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
 sys.path.insert(0, {root!r})
 import torch
 torch.set_num_threads(1)
 from nmpc_nav_control_tpu_torch.control import controller_init, controller_step, make_controller
-spec, data = make_controller("diff", 0.025, 10, dist_b=0.27, v_max=1.0, a_max=2.0,
-                             q_diag=[10.0, 10.0, 5.0, 0, 0, 0, 0], r_diag=[1.0, 1.0])
-state = controller_init(spec, 2)
-traj = torch.zeros(2, 11, 3)
-traj[:, 0, 0] = 1.0
-state, cmd, stats = controller_step(spec, data, state, torch.zeros(2, 3), torch.zeros(2, 3),
-                                    traj, torch.ones(2, dtype=torch.int32))
-assert bool(stats.ok.all()), stats
+import nmpc_nav_control_tpu_torch.convert
+import nmpc_nav_control_tpu_torch.qp.riccati
+for route in ("1", "0"):
+    os.environ["NMPC_TPU_TILED_IPM"] = route
+    for geometry, kw in (("diff", dict(dist_b=0.27, q_diag=[1.0] * 7, r_diag=[1.0] * 2)),
+                         ("omni4", dict(l1_plus_l2=0.535, q_diag=[1.0] * 11, r_diag=[1.0] * 4)),
+                         ("tric", dict(dist_d=1.05, alpha_min=-1.0, alpha_max=1.0,
+                                       dalpha_max=1.5, q_diag=[1.0] * 7, r_diag=[1.0] * 2))):
+        spec, data = make_controller(geometry, 0.025, 10, v_max=1.0, a_max=2.0, device="cpu", **kw)
+        state = controller_init(spec, 2, device="cpu")
+        traj = torch.zeros(2, 11, 3)
+        traj[:, 0, 0] = 1.0
+        state, cmd, stats = controller_step(spec, data, state, torch.zeros(2, 3),
+                                            torch.zeros(2, 3), traj,
+                                            torch.ones(2, dtype=torch.int32))
+        assert bool(stats.ok.all()), (geometry, route, stats)
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m] is not None)
 print("ok", float(cmd.v[0]))
 """

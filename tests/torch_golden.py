@@ -6,6 +6,7 @@ the same scenario through the port's batched ``controller_step`` with one
 lane, on a given device, against the same f64 plant, and returns the
 deviations that ``tests/test_rti_oracle.py`` bounds.  No JAX: shared by
 ``tests/test_torch_rti_oracle.py`` (CPU) and ``chip_smoke.py`` (the card).
+The IPM route follows ``NMPC_TPU_TILED_IPM`` as everywhere in the port.
 """
 from __future__ import annotations
 
@@ -37,12 +38,25 @@ def load(name):
     return Scenario(**meta), data
 
 
+def make_port_controller(sc: Scenario, dtype=torch.float32, device="cpu"):
+    """The port's controller for a golden scenario (any geometry), built as
+    ``tests/test_rti_oracle.py`` builds the JAX one."""
+    kw = dict(q_diag=list(sc.q), r_diag=list(sc.r), dtype=dtype, device=device)
+    if sc.geometry == "diff":
+        return make_controller("diff", sc.dt, sc.N, dist_b=sc.p[0], tau_v=sc.p[1],
+                               v_max=sc.ubx[0], a_max=sc.ubu[0], **kw)
+    if sc.geometry == "omni4":
+        return make_controller("omni4", sc.dt, sc.N, l1_plus_l2=sc.p[0], tau_v=sc.p[1],
+                               v_max=sc.ubx[0], a_max=sc.ubu[0], **kw)
+    return make_controller(
+        "tric", sc.dt, sc.N, dist_d=sc.p[0], tau_v=sc.p[1], tau_a=sc.p[2],
+        v_max=sc.ubx[0], a_max=sc.ubu[0], alpha_min=sc.lbx[1], alpha_max=sc.ubx[1],
+        dalpha_max=sc.ubu[1], tric_bug_compat=(sc.geometry == "tric_bug"), **kw)
+
+
 def port_step_fn(sc: Scenario, dtype=torch.float32, device="cpu"):
-    """``closed_loop`` step function backed by the port (diff geometry)."""
-    spec, data = make_controller(
-        "diff", sc.dt, sc.N, dist_b=sc.p[0], tau_v=sc.p[1], v_max=sc.ubx[0],
-        a_max=sc.ubu[0], q_diag=list(sc.q), r_diag=list(sc.r), dtype=dtype,
-        device=device)
+    """``closed_loop`` step function backed by the port."""
+    spec, data = make_port_controller(sc, dtype, device)
     holder = {"state": controller_init(spec, 1, dtype, device)}
 
     def lane(x):
@@ -51,7 +65,7 @@ def port_step_fn(sc: Scenario, dtype=torch.float32, device="cpu"):
     def step_fn(pose, vel, steer, traj, n_valid):
         state, cmd, stats = controller_step(
             spec, data, holder["state"], lane(pose), lane(vel), lane(traj),
-            torch.tensor([n_valid], device=device))
+            torch.tensor([n_valid], device=device), steer_angle=lane(steer))
         holder["state"] = state
         return (state.us[0, 0].double().cpu().numpy(),
                 torch.stack([cmd.v, cmd.vn, cmd.w], -1)[0].double().cpu().numpy())
