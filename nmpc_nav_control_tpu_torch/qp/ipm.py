@@ -20,11 +20,14 @@ batch (every leaf with a leading batch axis):
     (``ops/riccati_fused.py``), with the iterate update, the step lengths
     and the per-lane freeze in plain torch.
 
-``solve_box_qp`` chooses between them as the JAX package's does, from
-``NMPC_TPU_TILED_IPM`` read at call time ("1", the default, takes the fused
-sweeps).  The JAX package's other conditions (a TPU, whole 1024-lane tiles
-reached by edge padding) have no counterpart: either solve takes any batch
-size, B=1 included, with no padding.
+``solve_box_qp`` is the one place that chooses between them.  Like the JAX
+package's, it reads ``NMPC_TPU_TILED_IPM`` at call time (``tiled_ipm_ok``:
+"1", the default, takes the fused sweeps) unless its caller passes the
+route it has already read, as ``rti_step`` does so that its linearization
+pattern and its solve follow one reading.  The JAX package's other
+conditions (a TPU, whole 1024-lane tiles reached by edge padding) have no
+counterpart: either solve takes any batch size, B=1 included, with no
+padding.
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ import torch
 
 from nmpc_nav_control_tpu_torch.ops import riccati_fused as rf
 
-__all__ = ["BoxQP", "IPMSolution", "solve_box_qp", "solve_box_qp_serial"]
+__all__ = ["BoxQP", "IPMSolution", "solve_box_qp", "solve_box_qp_serial", "tiled_ipm_ok"]
 
 
 class BoxQP(NamedTuple):
@@ -90,7 +93,7 @@ def _guards(dtype):
     return 1e-7, 1e-9, 1e10
 
 
-def _tiled_ipm_ok() -> bool:
+def tiled_ipm_ok() -> bool:
     """True (the fused sweeps) unless ``NMPC_TPU_TILED_IPM`` is set to
     something other than "1"; read per call.  Unlike the JAX package's rule
     there is no platform test and no 1024-lane tile: both solves take any
@@ -100,21 +103,29 @@ def _tiled_ipm_ok() -> bool:
 
 def solve_box_qp(qp: BoxQP, idxbx, idxbu, iters: int = 12, tau: float = 0.995,
                  mu0: float = 1.0, s_min: float = 0.3, reg: float = 1e-8,
-                 mu_min: float | None = None, spars=None) -> IPMSolution:
+                 mu_min: float | None = None, spars=None, packed_abc=None,
+                 tiled: bool | None = None) -> IPMSolution:
     """Solve a batch of stagewise box QPs (leaves [B, ...]).
 
-    ``spars``: optional (A_pattern, B_pattern) structural-nonzero masks that
+    ``tiled``: the route, True for the fused sweeps and False for the
+    Riccati solve; None reads it from ``tiled_ipm_ok()``.  ``spars``:
+    optional (A_pattern, B_pattern) structural-nonzero masks that
     over-approximate the nonzeros of qp.A / qp.B, used by the fused sweeps;
-    None means dense.  The Riccati solve ignores it.  Returns an
-    ``IPMSolution`` with leading batch axes.
+    None means dense.  The Riccati solve ignores it.  ``packed_abc``:
+    optional batch-minor (A, Bm, c) already packed for the route (to
+    ``spars`` for the fused sweeps, dense for the Riccati solve); ``qp.A/B/c``
+    are then ignored.  Returns an ``IPMSolution`` with leading batch axes.
     """
-    if _tiled_ipm_ok():
+    if tiled is None:
+        tiled = tiled_ipm_ok()
+    if tiled:
         from nmpc_nav_control_tpu_torch.qp.ipm_batched import solve_box_qp_batched
 
         return solve_box_qp_batched(qp, idxbx, idxbu, iters=iters, tau=tau, mu0=mu0,
-                                    s_min=s_min, reg=reg, mu_min=mu_min, spars=spars)
+                                    s_min=s_min, reg=reg, mu_min=mu_min, spars=spars,
+                                    packed_abc=packed_abc)
     return solve_box_qp_serial(qp, idxbx, idxbu, iters=iters, tau=tau, mu0=mu0,
-                               s_min=s_min, reg=reg, mu_min=mu_min)
+                               s_min=s_min, reg=reg, mu_min=mu_min, packed_abc=packed_abc)
 
 
 def _per_lane_finite(x):

@@ -6,11 +6,12 @@ rollout, so one factorization serves the two Newton solves of a Mehrotra
 iteration.  The functions below are plain torch with a leading batch axis
 on every tensor ([B, N, ...]), in the JAX package's layout: the reference
 the kernels of ``ops/riccati_fused.py`` are held against and, through those
-wrappers' plain versions, the CPU route.  ``riccati_factor_v`` and
-``riccati_solve_v`` are the batched entry points of the JAX package under
-the same names: they move the operands to the kernels' batch-minor layout
-and go to the CUDA kernels for CUDA tensors and to the plain versions for
-CPU tensors.
+wrappers' plain versions, the CPU route.  The batched entry points of the
+JAX package (``riccati_factor_v``, ``riccati_solve_v``) are those wrappers
+(``riccati_factor_fused``, ``riccati_solve_bwd_fused``,
+``riccati_solve_fwd_fused``): they take the kernels' batch-minor layout, so
+the IPM lays A and B out once per solve, and go to the CUDA kernels for
+CUDA tensors and to the plain versions for CPU tensors.
 
 Problem solved (delta form; dx0 given):
   min  sum_{k<N} 1/2 dx'diag(Qd_k)dx + qx_k'dx + 1/2 du'diag(Rd_k)du + qu_k'du
@@ -26,7 +27,7 @@ import torch
 from nmpc_nav_control_tpu_torch.qp.linalg_small import cho_solve_small, cholesky_small
 
 __all__ = ["RiccatiFactors", "riccati_factor", "riccati_solve", "riccati_solve_bwd",
-           "riccati_solve_fwd", "lqr_solve", "riccati_factor_v", "riccati_solve_v"]
+           "riccati_solve_fwd", "lqr_solve"]
 
 
 class RiccatiFactors(NamedTuple):
@@ -114,44 +115,3 @@ def riccati_solve(factors: RiccatiFactors, A, B, qx, qu, c, dx0):
 def lqr_solve(A, B, Qd, Rd, qx, qu, c, dx0, reg: float = 0.0):
     """Factor + solve in one call."""
     return riccati_solve(riccati_factor(A, B, Qd, Rd, reg=reg), A, B, qx, qu, c, dx0)
-
-
-# --------------------------------------------------------------------------- #
-# Batched entry points: CUDA tensors -> the kernels, CPU tensors -> the plain
-# versions (ops/riccati_fused.py routes; these move the layout).
-# --------------------------------------------------------------------------- #
-
-
-def riccati_factor_v(A, B, Qd, Rd) -> RiccatiFactors:
-    """Batched ``riccati_factor`` (no regularization) through
-    ``ops.riccati_fused.riccati_factor_fused``."""
-    from nmpc_nav_control_tpu_torch.ops.riccati_fused import (
-        from_bm,
-        riccati_factor_fused,
-        to_bm,
-        unpack_L,
-    )
-
-    nx, nu = B.shape[-2:]
-    Ps, Ks, Ls = riccati_factor_fused(to_bm(A), to_bm(B), to_bm(Qd), to_bm(Rd))
-    return RiccatiFactors(Ps=from_bm(Ps, nx, nx), Ks=from_bm(Ks, nu, nx),
-                          Ls=from_bm(unpack_L(Ls, nu), nu, nu))
-
-
-def riccati_solve_v(factors: RiccatiFactors, A, B, qx, qu, c, dx0):
-    """Batched ``riccati_solve`` through the two kernels of
-    ``ops/riccati_fused.py``."""
-    from nmpc_nav_control_tpu_torch.ops.riccati_fused import (
-        from_bm,
-        pack_L,
-        riccati_solve_bwd_fused,
-        riccati_solve_fwd_fused,
-        to_bm,
-    )
-
-    nx, nu = B.shape[-2:]
-    Am, Bm, Km, cm = to_bm(A), to_bm(B), to_bm(factors.Ks), to_bm(c)
-    kff = riccati_solve_bwd_fused(Am, Bm, Km, pack_L(to_bm(factors.Ls), nu),
-                                  to_bm(factors.Ps), to_bm(qx), to_bm(qu), cm)
-    dxs, dus = riccati_solve_fwd_fused(Am, Bm, Km, kff, cm, dx0.mT.contiguous())
-    return from_bm(dxs, nx), from_bm(dus, nu)

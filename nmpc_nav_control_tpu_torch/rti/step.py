@@ -15,18 +15,19 @@ scenario lane of a batch:
 Every tensor has a leading batch axis [B, ...] in the JAX package's layout.
 The linearization writes the IPM's batch-minor operands directly, so the
 [B, N, nx, nx] Jacobians never exist.  Which IPM runs follows
-``NMPC_TPU_TILED_IPM`` (read per call), as in the JAX package: "1", the
-default, packs A/B to their structural nonzeros for the fused sweeps
-(``qp/ipm_batched.py``); otherwise the dense branch packs them with the
-dense pattern, row-major, which is the layout of the Riccati-based solve
-(``qp/ipm.py::solve_box_qp_serial``).  The JAX package's dense branch
-linearizes with ``jacfwd``; the complex step here gives the same Jacobians
-to rounding for these analytic models.
+``NMPC_TPU_TILED_IPM``, read once per call (``qp.ipm.tiled_ipm_ok``), as in
+the JAX package: "1", the default, packs A/B to their structural nonzeros
+for the fused sweeps (``qp/ipm_batched.py``); otherwise the dense branch
+packs them with the dense pattern, row-major, which is the layout of the
+Riccati-based solve (``qp/ipm.py::solve_box_qp_serial``).  That one
+reading goes to ``solve_box_qp``, so the pattern and the solve cannot
+disagree.  The JAX package's dense branch linearizes with ``jacfwd``; the
+complex step here gives the same Jacobians to rounding for these analytic
+models.
 """
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import NamedTuple
 
 import torch
@@ -34,8 +35,7 @@ import torch
 from nmpc_nav_control_tpu_torch.ocp.spec import OCPData, OCPDims
 from nmpc_nav_control_tpu_torch.ops.ipm_fused import dense_sparsity
 from nmpc_nav_control_tpu_torch.ops.linearize_packed import linearize_packed
-from nmpc_nav_control_tpu_torch.qp.ipm import BoxQP, _tiled_ipm_ok, solve_box_qp_serial
-from nmpc_nav_control_tpu_torch.qp.ipm_batched import solve_box_qp_batched
+from nmpc_nav_control_tpu_torch.qp.ipm import BoxQP, solve_box_qp, tiled_ipm_ok
 from nmpc_nav_control_tpu_torch.utils.angles import unwrap_angle
 
 __all__ = ["RTIConfig", "RTIState", "RTIStats", "build_yref", "rti_init",
@@ -155,17 +155,14 @@ def rti_step(config: RTIConfig, data: OCPData, state: RTIState, x0, traj_xy_thet
     lbx_d, ubx_d = data.lbx[:, None] - zx, data.ubx[:, None] - zx
     lbu_d, ubu_d = data.lbu[:, None] - zu, data.ubu[:, None] - zu
 
-    if _tiled_ipm_ok():
-        spars = config.spars if config.spars is not None else dense_sparsity(nx, nu)
-        solve = functools.partial(solve_box_qp_batched, spars=spars)
-    else:
-        spars, solve = dense_sparsity(nx, nu), solve_box_qp_serial
+    tiled = tiled_ipm_ok()
+    spars = config.spars if tiled and config.spars is not None else dense_sparsity(nx, nu)
     A, Bm, x_next = linearize_packed(model.f, dt, xs_lin, state.us, data.p, *spars)
     c = x_next - xs_lin[:, 1:].permute(1, 2, 0)
     qp = BoxQP(A=None, B=None, c=None, Qd=Qd, qx=qx, Rd=Rd, qu=qu,
                dx0=x0 - xs_lin[:, 0], lbx=lbx_d, ubx=ubx_d, lbu=lbu_d, ubu=ubu_d)
-    sol = solve(qp, model.idxbx, model.idxbu, iters=config.ipm_iters,
-                reg=config.ipm_reg, packed_abc=(A, Bm, c))
+    sol = solve_box_qp(qp, model.idxbx, model.idxbu, iters=config.ipm_iters,
+                       reg=config.ipm_reg, spars=spars, packed_abc=(A, Bm, c), tiled=tiled)
 
     # Expand, integrate the references, carry stage 1.
     xs_new = xs_lin + sol.dxs

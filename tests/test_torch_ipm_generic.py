@@ -109,6 +109,21 @@ def test_solve_box_qp_routes_by_env(monkeypatch):
                                    rtol=0.0, atol=1e-10, err_msg=name)
 
 
+def test_solve_box_qp_takes_the_callers_route(monkeypatch):
+    """A route passed by the caller (``rti_step`` passes the one it read)
+    wins over the environment, both ways."""
+    calls = []
+    orig = ipm.solve_box_qp_serial
+    monkeypatch.setattr(ipm, "solve_box_qp_serial",
+                        lambda *a, **k: calls.append(1) or orig(*a, **k))
+    qp = BoxQP(**{k: torch.tensor(v) for k, v in _random_qps(7, 2, 5).items()})
+    solve_box_qp(qp, (5, 6), (0, 1), iters=2, tiled=True)
+    assert calls == []
+    monkeypatch.setenv("NMPC_TPU_TILED_IPM", "1")
+    solve_box_qp(qp, (5, 6), (0, 1), iters=2, tiled=False)
+    assert calls == [1]
+
+
 def test_riccati_solve_hands_the_kernels_what_they_take(monkeypatch):
     """Every operand the solve passes to the Riccati kernel wrappers is
     contiguous and of the problem's dtype: what the CUDA kernels check on

@@ -1,11 +1,12 @@
 """The port's Riccati modules and kernels against the JAX package.
 
 - ``qp/linalg_small.py`` and ``qp/riccati.py`` (plain torch, batch-explicit)
-  and the batched entry points ``riccati_factor_v`` / ``riccati_solve_v``
-  against ``jax.vmap`` of ``nmpc_nav_control_tpu/qp/{linalg_small,riccati}.py``
-  on the same numpy inputs, at (nx, nu) = (7, 2) and (11, 4): f64 to 1e-12,
-  f32 within the bounds of ``tests/test_pallas_riccati.py`` (Ps atol 5e-4 /
-  rtol 1e-4, Ks atol 5e-5 / rtol 1e-4, dxs and dus atol 5e-5).
+  and the routed wrappers of ``ops/riccati_fused.py`` (the batched entry
+  points, reached through ``to_bm`` / ``from_bm``) against ``jax.vmap`` of
+  ``nmpc_nav_control_tpu/qp/{linalg_small,riccati}.py`` on the same numpy
+  inputs, at (nx, nu) = (7, 2) and (11, 4): f64 to 1e-12, f32 within the
+  bounds of ``tests/test_pallas_riccati.py`` (Ps atol 5e-4 / rtol 1e-4, Ks
+  atol 5e-5 / rtol 1e-4, dxs and dus atol 5e-5).
 - The plain versions of the three Riccati kernels (``ops/riccati_fused.py``,
   what the wrappers take for CPU tensors) against the Pallas kernels they
   replace (``nmpc_nav_control_tpu/ops/pallas_riccati.py``) in interpret
@@ -34,6 +35,24 @@ F32 = {"Ps": dict(atol=5e-4, rtol=1e-4), "Ks": dict(atol=5e-5, rtol=1e-4),
 def _jax():
     jax = pytest.importorskip("jax")
     return jax, jax.numpy
+
+
+def _factor_routed(A, B, Qd, Rd):
+    """``riccati_factor`` through the routed wrapper, in the JAX layout."""
+    nx, nu = B.shape[-2:]
+    f = rf.riccati_factor_fused(rf.to_bm(A), rf.to_bm(B), rf.to_bm(Qd), rf.to_bm(Rd))
+    return riccati.RiccatiFactors(Ps=rf.from_bm(f.Ps, nx, nx), Ks=rf.from_bm(f.Ks, nu, nx),
+                                  Ls=rf.from_bm(rf.unpack_L(f.Ls, nu), nu, nu))
+
+
+def _solve_routed(factors, A, B, qx, qu, c, dx0):
+    """``riccati_solve`` through the two routed wrappers, in the JAX layout."""
+    nx, nu = B.shape[-2:]
+    Am, Bm, Km, cm = rf.to_bm(A), rf.to_bm(B), rf.to_bm(factors.Ks), rf.to_bm(c)
+    kff = rf.riccati_solve_bwd_fused(Am, Bm, Km, rf.pack_L(rf.to_bm(factors.Ls), nu),
+                                     rf.to_bm(factors.Ps), rf.to_bm(qx), rf.to_bm(qu), cm)
+    dxs, dus = rf.riccati_solve_fwd_fused(Am, Bm, Km, kff, cm, dx0.mT.contiguous())
+    return rf.from_bm(dxs, nx), rf.from_bm(dus, nu)
 
 
 def _lqr(nx, nu, N, B, seed):
@@ -90,13 +109,13 @@ def test_riccati_factor_solve_lqr_match_jax(nx, nu, dtype):
         return F64 if dtype == "float64" else F32[name]
 
     t_args = (td["A"], td["B"], td["Qd"], td["Rd"])
-    for factor in (riccati.riccati_factor, riccati.riccati_factor_v):
+    for factor in (riccati.riccati_factor, _factor_routed):
         got_f = factor(*t_args)
         for name in ("Ps", "Ks", "Ls"):
             np.testing.assert_allclose(getattr(got_f, name).numpy(),
                                        np.asarray(getattr(want_f, name)),
                                        err_msg=f"{factor.__name__} {name}", **tol(name))
-    for solve in (riccati.riccati_solve, riccati.riccati_solve_v):
+    for solve in (riccati.riccati_solve, _solve_routed):
         got_s = solve(got_f, td["A"], td["B"], td["qx"], td["qu"], td["c"], td["dx0"])
         for name, g, w in zip(("dxs", "dus"), got_s, want_s):
             np.testing.assert_allclose(g.numpy(), np.asarray(w),

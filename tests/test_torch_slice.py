@@ -11,8 +11,9 @@ omni4, tric and the tricycle's bug-compatible model run on both IPM routes
 measured steering angles for tric.  f64 agrees to rounding (the port's IPM
 guards follow the dtype as the JAX serial path's do); f32 within the
 batched-vs-serial bound of ``tests/test_qp.py``.  Also: ``convert.py``
-round-trips state between the packages for every geometry, geometry
-arguments are checked, and the entry points default to the card.
+round-trips state between the packages for every geometry, a tick reads
+its route once, geometry arguments are checked, and the entry points
+default to the card.
 """
 import functools
 import math
@@ -148,6 +149,29 @@ def test_batched_ticks_match_jax(dtype):
 def test_geometry_ticks_match_jax(geometry, dtype, route, monkeypatch):
     monkeypatch.setenv("NMPC_TPU_TILED_IPM", route)
     _check_ticks(geometry, dtype)
+
+
+@pytest.mark.parametrize("route", [True, False])
+def test_rti_step_reads_the_route_once(route, monkeypatch):
+    """A tick reads the route once and hands that reading to
+    ``solve_box_qp``, so its linearization pattern and its solve follow one
+    choice even where the environment says otherwise."""
+    import nmpc_nav_control_tpu_torch.rti.step as step
+
+    reads, routes = [], []
+    monkeypatch.setattr(step, "tiled_ipm_ok", lambda: reads.append(1) or route)
+    solve = step.solve_box_qp
+    monkeypatch.setattr(step, "solve_box_qp",
+                        lambda *a, **k: routes.append(k["tiled"]) or solve(*a, **k))
+    monkeypatch.setenv("NMPC_TPU_TILED_IPM", "0" if route else "1")
+    name, kw = GEOMETRIES["diff"]
+    spec, data = make_controller(name, 0.025, N, dtype=torch.float64, device="cpu", **kw)
+    poses, vels, trajs, n_valid = _inputs()
+    _, _, stats = controller_step(spec, data, controller_init(spec, B, torch.float64, "cpu"),
+                                  torch.tensor(poses), torch.tensor(vels), torch.tensor(trajs),
+                                  torch.tensor(n_valid))
+    assert reads == [1] and routes == [route]
+    assert bool(stats.ok.all())
 
 
 @pytest.mark.parametrize("geometry", ["diff", "omni4", "tric"])
