@@ -6,12 +6,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
 It imports nothing of JAX.  Phases, each printing one line per result:
 
   1. device and build: the card's name and power limit from nvidia-smi;
-     the CUDA kernels built from ``nmpc_nav_control_tpu_torch/csrc``;
+     the CUDA kernels built from ``nmpc_nav_control_tpu_torch/csrc``; each
+     kernel's registers and spill stores (ptxas) and, from one launch at
+     B=17 under the profiler, its shared memory per block, static plus
+     dynamic;
   2. each IPM sweep kernel against its plain torch version on the card, on
-     random valid IPM inputs at N=40 for the diff and the omni4
-     specialisations, with B = 2048, 1 and 1000 (a ragged last block),
-     within rtol 1e-4 / atol 1e-5; kernel and plain times at B=2048 from
-     CUDA events, device times from the profiler;
+     random valid IPM inputs for the diff and the omni4 specialisations, at
+     N=40 with B = 2048, 1 and 1000 (a ragged last block) and at N=80 with
+     B=17 (ragged, batch rows not 16-byte aligned), within rtol 1e-4 /
+     atol 1e-5; kernel and plain times at B=2048 from CUDA events, device
+     times from the profiler at B=2048 and B=1;
   3. the main path: 20 chained batched ``controller_step`` ticks, diff N=40,
      B=2048, 8 IPM iterations, f32, with the inputs of ``bench.py``; every
      lane ``ok``, finite ``kkt_res``, and the launch counts exactly 8/8/8/8/1
@@ -118,6 +122,53 @@ def _device_ms(torch, fn, reps=10):
     return total / reps / 1000.0 if total > 0 else None
 
 
+def _ptxas_kernels(log):
+    """kernel<template args> -> (registers, spill store bytes, static shared
+    memory bytes) from nvcc's -Xptxas -v log."""
+    out = {}
+    for fn, spill, used in re.findall(
+            r"entry function '(\w+)' for \S+\n.*\n\s*\d+ bytes stack frame, "
+            r"(\d+) bytes spill stores.*\n.*Used (\d+ registers.*)", log):
+        m = re.search(r"([a-z]+(?:_[a-z]+)*_kernel)I(?:\d+(\w+?Config)(?:Lb([01])E)?|Li(\d+)ELi(\d+)E)E", fn)
+        if m.group(2):
+            targs = m.group(2) + ("" if m.group(3) is None else (", true" if m.group(3) == "1"
+                                                                 else ", false"))
+        else:
+            targs = f"{m.group(4)}, {m.group(5)}"
+        smem = re.search(r"(\d+) bytes smem", used)
+        out[f"{m.group(1)}<{targs}>"] = (int(used.split()[0]), int(spill),
+                                          int(smem.group(1)) if smem else 0)
+    return out
+
+
+def _launch_props(torch, fn):
+    """(registers per thread, shared memory per block in bytes, grid, block)
+    of the one kernel that ``fn`` launches, from the profiler's trace (CUPTI
+    reports static plus dynamic shared memory); None where the trace has no
+    kernel."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    for e in events:
+        if e.get("cat") == "kernel":
+            a = e.get("args", {})
+            return (a.get("registers per thread"), a.get("shared memory"), a.get("grid"),
+                    a.get("block"))
+    return None
+
+
 def _nbytes(x):
     return sum(t.numel() * t.element_size() for t in _leaves(x) if hasattr(t, "numel"))
 
@@ -160,6 +211,39 @@ def _bound(nbytes, flops):
     """(least ms the card needs, "bytes" or "operations")."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# Kernel template of each wrapper, as ptxas names it (phase 1).
+IPM_KERNEL = {"ipm_bwd_fused": "bwd_fused_kernel<{}>", "ipm_fwd_affine": "fwd_kernel<{}, false>",
+              "ipm_bwd_corr": "bwd_corr_kernel<{}>", "ipm_fwd_corr": "fwd_kernel<{}, true>",
+              "ipm_kkt_fused": "kkt_kernel<{}>"}
+CONFIG = {"diff": "DiffConfig", "omni4": "Omni4Config"}
+RICCATI_KERNEL = {"riccati_factor": "factor_kernel<{}, {}>",
+                  "riccati_solve_bwd": "solve_bwd_kernel<{}, {}>",
+                  "riccati_solve_fwd": "solve_fwd_kernel<{}, {}>"}
+
+
+def _sweep_cfg(torch, tp, geometry):
+    """The IPM sweeps' static shape for a geometry of bench.py."""
+    spec = _controller(torch, "cpu", geometry=geometry)[0]
+    m = spec.dims.model
+    return tp.SweepConfig(m.nx, m.nu, m.idxbx, m.idxbu, *spec.rti.spars)
+
+
+def _print_launch(torch, record, ptxas, name, kname, kern):
+    """Phase 1: one launch of a kernel under the profiler; its registers and
+    shared memory per block, static (ptxas) plus dynamic (the rest)."""
+    props = _launch_props(torch, kern)
+    static = ptxas.get(kname, (None, None, 0))[2]
+    if props is None or props[1] is None:
+        print(f"phase 1 launch {name} {kname}: not measured (no kernel in the trace)")
+        return
+    regs, total, grid, block = props
+    print(f"phase 1 launch {name} {kname} at B=17: {regs} registers, shared memory "
+          f"{total} bytes per block = {static} static + {total - static} dynamic, "
+          f"grid {grid}, block {block}")
+    record["launch"][kname] = dict(registers=regs, smem=total, static_smem=static,
+                                   grid=grid, block=block)
 
 
 def _sweep_calls(torch, tp, cfg, x, dev):
@@ -293,13 +377,22 @@ def main() -> int:
     spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill stores", log))
     print(f"phase 1 build: {build_s:.1f} s, {lib.name}, max {max(regs, default=0)} "
           f"registers/thread, {spills} bytes spill stores in all kernels")
-    for fn, spill, reg in re.findall(
-            r"entry function '(\w+)' for \S+\n.*\n\s*\d+ bytes stack frame, "
-            r"(\d+) bytes spill stores.*\n.*Used (\d+) registers", log):
-        m = re.search(r"([a-z]+(?:_[a-z]+)*_kernel)I(\w+?)EE", fn)
-        print(f"phase 1 ptxas {m.group(1)}<{m.group(2)}>: {reg} registers, "
-              f"{spill} bytes spill stores")
+    ptxas = _ptxas_kernels(log)
+    for kname, (reg, spill, static) in ptxas.items():
+        print(f"phase 1 ptxas {kname}: {reg} registers, {spill} bytes spill stores, "
+              f"{static} bytes static shared memory")
     record.update(device=smi, kind=kind, build_s=build_s, ptxas=log)
+    cfgs = {config: _sweep_cfg(torch, tp, config) for config in ("diff", "omni4")}
+    record["launch"] = {}
+    for config, cfg in cfgs.items():
+        x = random_sweep_inputs(cfg.nx, cfg.nu, cfg.nbx, cfg.nbu, cfg.asp, cfg.bsp, N, 17, seed=17)
+        for name, (kern, _, _) in _sweep_calls(torch, tp, cfg, x, dev).items():
+            _print_launch(torch, record, ptxas, name, IPM_KERNEL[name].format(CONFIG[config]),
+                          kern)
+    for nx, nu in ((7, 2), (11, 4)):
+        calls = _riccati_calls(torch, rf, random_riccati_inputs(nx, nu, N, 17, seed=17), dev)
+        for name, (kern, _, _, _) in calls.items():
+            _print_launch(torch, record, ptxas, name, RICCATI_KERNEL[name].format(nx, nu), kern)
 
     spec, data = _controller(torch, dev)
     kernels = {}
@@ -314,25 +407,29 @@ def main() -> int:
 
     # ---- Phase 2: each IPM sweep kernel against its plain version. ----
     # The JSON line carries the diff numbers (the main path of phase 3); the
-    # omni4 specialisation is checked and timed too (phase 8's path).
-    record["ipm_omni4"] = {}
-    for config in ("diff", "omni4"):
-        spec_c = _controller(torch, "cpu", geometry=config)[0]
-        m = spec_c.dims.model
-        cfg = tp.SweepConfig(m.nx, m.nu, m.idxbx, m.idxbu, *spec_c.rti.spars)
+    # omni4 specialisation is checked and timed too (phase 8's path).  N=80
+    # at B=17 (ragged, rows not 16-byte aligned) holds the kernels at the
+    # reference's horizon; B=1 gives each kernel's device time for one lane.
+    record["ipm_omni4"], record["device_ms_B1"] = {}, {}
+    for config, cfg in cfgs.items():
         nx, nu, nbx, nbu = cfg.nx, cfg.nu, cfg.nbx, cfg.nbu
-        for lanes in (2048, 1, 1000):
-            x = random_sweep_inputs(nx, nu, nbx, nbu, cfg.asp, cfg.bsp, N, lanes, seed=lanes)
+        for lanes, horizon in ((2048, N), (1, N), (1000, N), (17, 2 * N)):
+            x = random_sweep_inputs(nx, nu, nbx, nbu, cfg.asp, cfg.bsp, horizon, lanes, seed=lanes)
             for name, (kern, plain, args) in _sweep_calls(torch, tp, cfg, x, dev).items():
                 got, ref = kern(), plain()
                 torch.cuda.synchronize()
                 abs_err, rel_err, excess = _errors(torch, got, ref)
-                print(f"phase 2 {name} {config} B={lanes}: max abs err {abs_err:.3e}, "
+                print(f"phase 2 {name} {config} N={horizon} B={lanes}: max abs err {abs_err:.3e}, "
                       f"max rel err {rel_err:.3e}, worst err/(atol+rtol|ref|) {excess:.3f}")
                 if not excess <= 1.0:
-                    raise AssertionError(f"{name} {config} B={lanes}: kernel disagrees with plain")
+                    raise AssertionError(f"{name} {config} N={horizon} B={lanes}: kernel "
+                                         "disagrees with plain")
                 k = kernels[name]
                 k["max_abs_err"] = max(k["max_abs_err"], abs_err)
+                if lanes == 1:
+                    dev_ms = _device_ms(torch, kern)
+                    print(f"phase 2 {name} {config} B=1: device {dev_ms} ms")
+                    record["device_ms_B1"][f"{name}/{config}"] = dev_ms
                 if lanes != 2048:
                     continue
                 ms, plain_ms, dev_ms = _time_pair(torch, kern, plain)

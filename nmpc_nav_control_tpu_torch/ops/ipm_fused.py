@@ -23,13 +23,16 @@ bounds at row k apply to stage k+1.
 
 Each wrapper routes by device: tensors on the CPU go to the plain torch
 version beside it, tensors on a CUDA device go to the hand-written kernel in
-``csrc/ipm_fused.cu`` (one thread per scenario lane, the stage loop inside
-the thread), or the wrapper raises.  There is no fallback between the two.
-The plain versions follow the TPU kernels' conventions so that every output
-is comparable: the cost-to-go carry excludes the stage diagonal, which is
-added when consumed; backward sweeps read Qd/qx/dx at row k+1; the forward
-rollout starts from ``r_init = dx0 - dx[0]``; the fraction-to-boundary
-sentinel is ``_BIG``.  They also run in f64.
+``csrc/ipm_fused.cu`` (its header says how each kernel splits a lane's
+stages over threads), or the wrapper raises.  There is no fallback between
+the two.  The plain versions follow the TPU kernels' conventions so that
+every output is comparable: the cost-to-go carry excludes the stage
+diagonal, which is added when consumed; backward sweeps read Qd/qx/dx at
+row k+1; the forward rollout starts from ``r_init = dx0 - dx[0]``; the
+fraction-to-boundary sentinel is ``_BIG``; a product with a structural zero
+of A or B is left out of its sum, and the Cholesky factor and its solves
+go entry by entry, so NaN and Inf reach the same outputs as in the kernels.
+They also run in f64.
 """
 from __future__ import annotations
 
@@ -187,21 +190,81 @@ def _bf(x):
     return x.mT
 
 
+class _Sparse(NamedTuple):
+    """A stage matrix, dense [..., n, m] with zeros off the pattern, and its
+    structural-nonzero mask [n, m]."""
+    M: torch.Tensor
+    nz: torch.Tensor
+
+    @property
+    def mT(self):
+        return _Sparse(self.M.mT, self.nz.mT)
+
+    def __getitem__(self, k):
+        return _Sparse(self.M[k], self.nz)
+
+
 def _dense(packed, sp):
-    """Packed [N, nnz, B] -> dense [N, B, n, m] with zeros off the pattern."""
+    """Packed [N, nnz, B] -> _Sparse of [N, B, n, m]."""
     n, m = len(sp), len(sp[0])
     N, _, B = packed.shape
     out = packed.new_zeros((N, n * m, B))
     out[:, [i * m + j for i, j in nz_positions(sp)]] = packed
-    return _bf(out).reshape(N, B, n, m)
+    nz = torch.tensor(sp, dtype=torch.bool, device=packed.device)
+    return _Sparse(_bf(out).reshape(N, B, n, m), nz)
+
+
+def _mm(a, b):
+    """a @ b, either factor dense or a _Sparse: a structural zero's term is
+    left out of the sum, not added as 0 * x, so a NaN or Inf multiplied by a
+    structural zero stays out of the result, as in the kernels (the Pallas
+    kernels' ``_dot`` and the CUDA kernels skip these terms)."""
+    if not isinstance(a, _Sparse) and not isinstance(b, _Sparse):
+        return a @ b
+    am, bm = (x.M if isinstance(x, _Sparse) else x for x in (a, b))
+    t = am.unsqueeze(-1) * bm.unsqueeze(-3)                   # [..., i, m, j]
+    if isinstance(a, _Sparse):
+        t = torch.where(a.nz[:, :, None], t, 0.0)
+    if isinstance(b, _Sparse):
+        t = torch.where(b.nz[None], t, 0.0)
+    return t.sum(-2)
 
 
 def _chol(Q):
-    """Cholesky factor of [..., n, n] (lower triangle read).  A matrix that
-    is not positive definite gives an all-NaN factor, as the kernels' IEEE
-    sqrt of a non-positive pivot poisons every later entry."""
-    L, info = torch.linalg.cholesky_ex(Q)
-    return torch.where((info == 0)[..., None, None], L, torch.nan)
+    """Cholesky factor of [..., n, n] (lower triangle read), entry by entry
+    as the kernels compute it: IEEE sqrt of a non-positive or NaN pivot
+    gives NaN there, and the NaN reaches exactly the entries that use it."""
+    n = Q.shape[-1]
+    L = [[None] * n for _ in range(n)]
+    for i in range(n):
+        for j in range(i + 1):
+            t = Q[..., i, j]
+            for m in range(j):
+                t = t - L[i][m] * L[j][m]
+            L[i][j] = torch.sqrt(t) if i == j else t / L[j][j]
+    zero = torch.zeros_like(Q[..., 0, 0])
+    return torch.stack([torch.stack([L[i][j] if j <= i else zero for j in range(n)], -1)
+                        for i in range(n)], -2)
+
+
+def _chol_solve(rhs, L):
+    """(L L')^{-1} rhs for rhs [..., n, c], by the kernels' two substitutions
+    (LAPACK's skips terms whose right-hand side is zero, which would hide a
+    NaN in L)."""
+    n = L.shape[-1]
+    y = [None] * n
+    for i in range(n):
+        t = rhs[..., i, :]
+        for m in range(i):
+            t = t - L[..., i, m, None] * y[m]
+        y[i] = t / L[..., i, i, None]
+    x = [None] * n
+    for i in reversed(range(n)):
+        t = y[i]
+        for m in range(i + 1, n):
+            t = t - L[..., m, i, None] * x[m]
+        x[i] = t / L[..., i, i, None]
+    return torch.stack(x, -2)
 
 
 def _lower_to_sym(M):
@@ -236,9 +299,9 @@ def _vector_bwd(Ad, Bd, K, L, Pc, gx, gu):
     sol = [None] * gu.shape[0]
     for k in reversed(range(gu.shape[0])):
         tmp = p + gx[k] + Pc[k]
-        qub = gu[k] + BT[k] @ tmp
-        sol[k] = torch.cholesky_solve(qub, L[k])
-        p = AT[k] @ tmp + KT[k] @ qub
+        qub = gu[k] + _mm(BT[k], tmp)
+        sol[k] = _chol_solve(qub, L[k])
+        p = _mm(AT[k], tmp) + KT[k] @ qub
     return -torch.stack(sol).squeeze(-1)
 
 
@@ -289,7 +352,7 @@ def bwd_fused_plain(cfg, A, Bm, Qd, Rd, qx, qu, c, dx, du, s, lam, bnd, *,
     rbar = Rd + reg
     rbar[..., ibu] = rbar[..., ibu] + Du
 
-    rdyn = c - dx[1:] + (Ad @ _col(dx[:-1])).squeeze(-1) + (Bd @ _col(du)).squeeze(-1)
+    rdyn = c - dx[1:] + _mm(Ad, _col(dx[:-1])).squeeze(-1) + _mm(Bd, _col(du)).squeeze(-1)
     le = tuple(-(l_ / s_) * r_ for l_, s_, r_ in zip(lam, s, rp))
     gx, gu = _grads(cfg, Qd, qx, dx, Rd, qu, du, le)
 
@@ -298,16 +361,16 @@ def bwd_fused_plain(cfg, A, Bm, Qd, Rd, qx, qu, c, dx, du, s, lam, bnd, *,
     N = c.shape[0]
     AT, BT = Ad.mT, Bd.mT
     Qdiag, Rdiag, r_col = torch.diag_embed(qbar), torch.diag_embed(rbar), _col(rdyn)
-    P_core = torch.zeros_like(Ad[0])
+    P_core = torch.zeros_like(Ad.M[0])
     Ks, Ls, Pcs = [None] * N, [None] * N, [None] * N
     for k in reversed(range(N)):
         P = P_core + Qdiag[k]
         Pcs[k] = P @ r_col[k]
-        PA = P @ Ad[k]
-        Qux = BT[k] @ PA
-        Ls[k] = _chol(BT[k] @ (P @ Bd[k]) + Rdiag[k])
-        Ks[k] = -torch.cholesky_solve(Qux, Ls[k])
-        P_core = _lower_to_sym(AT[k] @ PA + Qux.mT @ Ks[k])
+        PA = _mm(P, Ad[k])
+        Qux = _mm(BT[k], PA)
+        Ls[k] = _chol(_mm(BT[k], _mm(P, Bd[k])) + Rdiag[k])
+        Ks[k] = -_chol_solve(Qux, Ls[k])
+        P_core = _lower_to_sym(_mm(AT[k], PA) + Qux.mT @ Ks[k])
     K, L, Pc = torch.stack(Ks), torch.stack(Ls), torch.stack(Pcs).squeeze(-1)
     kff = _vector_bwd(Ad, Bd, K, L, Pc, gx, gu)
     return BwdFusedOut(
@@ -324,7 +387,7 @@ def _rollout(Ad, Bd, K, kff, rdyn, r_init):
     dxs, dus = [dx], []
     for k in range(kff.shape[0]):
         du = kff[k] + K[k] @ dx
-        dx = rdyn[k] + Ad[k] @ dx + Bd[k] @ du
+        dx = rdyn[k] + _mm(Ad[k], dx) + _mm(Bd[k], du)
         dxs.append(dx)
         dus.append(du)
     return torch.stack(dxs).squeeze(-1), torch.stack(dus).squeeze(-1)
@@ -413,8 +476,8 @@ def kkt_fused_plain(cfg, A, Bm, Qd, qx, dx, Rd, qu, du, lam, s) -> KKTOut:
     nus = [None] * N
     for k in reversed(range(N)):
         nus[k] = gx[k] + c
-        c = AT[k] @ nus[k]
-    ru = gu + (Bd.mT @ torch.stack(nus)).squeeze(-1)
+        c = _mm(AT[k], nus[k])
+    ru = gu + _mm(Bd.mT, torch.stack(nus)).squeeze(-1)
     return KKTOut(kkt=ru.abs().amax((0, 2)),
                   musum=_sum_sl(tuple(map(_bf, s)), lam_b))
 

@@ -168,6 +168,112 @@ def test_kkt_fused_matches_pallas(chain):
     _compare(out, chain["kkt"])
 
 
+# Lanes of the non-finite input set: an Inf in the dynamics residual at the
+# last stage, a NaN slack whose delta is negative, a slack at the 1e-9 floor
+# (lambda/s = 2e10, past the 1e10 barrier cap), a NaN feed-forward.
+INF_LANE, NAN_S_LANE, FLOOR_LANE, NAN_KFF_LANE = 3, 70, 200, 500
+
+
+def _nonfinite_set(cfg, N, lanes, seed=3):
+    """One f32 input set for ``bwd_fused``, ``fwd_affine`` and ``fwd_corr``
+    with the four faulty lanes above.  The forward sweeps' K, kff, rdyn, rp
+    and corr come from the plain sweeps on the clean inputs; then the faults
+    go in.  Returns a dict of numpy arrays (bound groups as tuples)."""
+    x = random_sweep_inputs(cfg.nx, cfg.nu, cfg.nbx, cfg.nbu, cfg.asp, cfg.bsp, N, lanes,
+                            seed=seed)
+    bwd = tp.bwd_fused_plain(cfg, *_bwd_args(x), reg=REG, d_cap=D_CAP)
+    fwd = (_t(x["A"]), _t(x["Bm"]), bwd.K, bwd.kff, bwd.rdyn, _t(x["r_init"]),
+           _t(x["s"]), _t(x["lam"]), bwd.rp)
+    aff = tp.fwd_affine_plain(cfg, *fwd, tau=TAU)
+    x = {k: tuple(np.array(t) for t in v) if isinstance(v, tuple) else np.array(v)
+         for k, v in x.items()}
+    x.update(K=bwd.K.numpy(), kff=bwd.kff.numpy().copy(), rdyn=bwd.rdyn.numpy().copy(),
+             rp=tuple(r.numpy().copy() for r in bwd.rp),
+             corr=tuple((aff.alpha * c).numpy() for c in aff.corr))
+    ix = cfg.idxbx[0]
+    x["c"][N - 1, ix, INF_LANE] = np.inf          # dz = Inf at the last stage
+    x["rdyn"][N - 1, ix, INF_LANE] = np.inf
+    x["s"][0][2, 1, NAN_S_LANE] = np.nan          # x lower, stage 2, entry 1 ...
+    x["rp"][0][2, 1, NAN_S_LANE] = -10.0          # ... with a negative delta
+    x["s"][2][1, 0, FLOOR_LANE] = 1e-9
+    x["lam"][2][1, 0, FLOOR_LANE] = 20.0
+    x["kff"][min(3, N - 1), 0, NAN_KFF_LANE] = np.nan
+    return x
+
+
+def _nonfinite_args(x, conv):
+    """(bwd_fused args, fwd_affine args, fwd_corr args) with ``conv`` applied
+    to every array."""
+    g = {k: tuple(conv(t) for t in v) if isinstance(v, tuple) else conv(v) for k, v in x.items()}
+    bwd = (g["A"], g["Bm"], g["Qd"], g["Rd"], g["qx"], g["qu"], g["c"], g["dx"], g["du"],
+           g["s"], g["lam"], g["bnd"])
+    aff = (g["A"], g["Bm"], g["K"], g["kff"], g["rdyn"], g["r_init"], g["s"], g["lam"], g["rp"])
+    return bwd, aff, aff + (g["corr"], g["sigma_mu"])
+
+
+def _assert_same_nonfinite(got, want, name):
+    """NaN, +Inf and -Inf in the same places; finite values within rtol
+    1e-4 / atol 1e-5, but rtol 1e-3 on the floor lane, whose deltas are
+    lambda/s = 2e10 times rollout values that f32 rounds at ~6e-8."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64).reshape(np.shape(got))
+    for what, f in (("NaN", np.isnan), ("+Inf", np.isposinf), ("-Inf", np.isneginf)):
+        np.testing.assert_array_equal(f(got), f(want), err_msg=f"{name}: {what} placement")
+    rtol = np.full(got.shape[-1], RTOL)
+    if got.shape[-1] > FLOOR_LANE:
+        rtol[FLOOR_LANE] = 1e-3
+    ok = np.isfinite(want)
+    tol = ATOL + rtol * np.abs(np.where(ok, want, 0.0))
+    bad = ok & ~(np.abs(np.where(ok, got, 0.0) - np.where(ok, want, 0.0)) <= tol)
+    assert not bad.any(), f"{name}: {np.argwhere(bad)[:5].tolist()} out of tolerance"
+
+
+def _check_nonfinite_semantics(bwd, aff, fc):
+    """What the faulty lanes must show, in any correct version."""
+    assert np.isnan(bwd["musum"][NAN_S_LANE]) and np.isfinite(bwd["musum"][INF_LANE])
+    for out in (aff, fc):
+        assert np.isnan(out["alpha"][NAN_S_LANE])                    # NaN ratio reached alpha
+        assert np.isfinite(out["alpha"][NAN_KFF_LANE])               # NaN deltas: sentinel
+        assert out["alpha"][INF_LANE] == 0.0                         # dl = -Inf: ratio 0
+    assert fc["finite"][NAN_KFF_LANE] == 0 and fc["finite"][INF_LANE] == 0
+    assert fc["finite"][FLOOR_LANE] == 1 and 0 < aff["alpha"][FLOOR_LANE] < 1e-8
+
+
+def test_nonfinite_lanes_match_pallas():
+    """NaN and Inf reach the same outputs, and alpha, finite, c12 and musum
+    agree per lane, in the plain sweeps and the Pallas kernels (interpret
+    mode), diff pattern, N=6, B=1024."""
+    jnp = pytest.importorskip("jax.numpy")
+    from nmpc_nav_control_tpu.ops import pallas_ipm as jp
+
+    asp, bsp = DIFF_SP
+    cfg = tp.SweepConfig(NX, NU, IDXBX, IDXBU, asp, bsp)
+    x = _nonfinite_set(cfg, N, B)
+    bwd_a, aff_a, fc_a = _nonfinite_args(x, lambda v: jnp.asarray(_tiles(v if v.ndim == 3 else
+                                                                          v.reshape(1, -1, v.shape[-1]))))
+    sp = dict(asp=asp, bsp=bsp)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("NMPC_TPU_PALLAS_INTERPRET", "1")
+        jb = jp.ipm_bwd_fused(*bwd_a[:9], *bwd_a[9], *bwd_a[10], *bwd_a[11], IDXBX, IDXBU,
+                              NX, NU, reg=REG, d_cap=D_CAP, **sp)
+        ja = jp.ipm_fwd_affine(*aff_a[:6], *aff_a[6], *aff_a[7], *aff_a[8], IDXBX, IDXBU,
+                               TAU, NX, NU, **sp)
+        jc = jp.ipm_fwd_corr(*fc_a[:6], *fc_a[6], *fc_a[7], *fc_a[8], *fc_a[9], fc_a[10],
+                             IDXBX, IDXBU, TAU, NX, NU, **sp)
+    bwd_t, aff_t, fc_t = _nonfinite_args(x, _t)
+    pb = tp.bwd_fused_plain(cfg, *bwd_t, reg=REG, d_cap=D_CAP)
+    pa = tp.fwd_affine_plain(cfg, *aff_t, tau=TAU)
+    pc = tp.fwd_corr_plain(cfg, *fc_t, tau=TAU)
+    flat = [(pb, jb, "bwd"), (pa, ja, "aff"), (pc, jc, "corr")]
+    for port, ref, tag in flat:
+        leaves = [t for v in port for t in (v if isinstance(v, tuple) else (v,))]
+        assert len(leaves) == len(ref)
+        for i, (g, w) in enumerate(zip(leaves, ref)):
+            _assert_same_nonfinite(g.numpy(), _untile(w), f"{tag} output {i}")
+    _check_nonfinite_semantics(
+        dict(musum=pb.musum.numpy()), dict(alpha=pa.alpha.numpy()),
+        dict(alpha=pc.alpha.numpy(), finite=pc.finite.numpy()))
+
+
 def test_config_diff_header_matches_detected_pattern():
     """The compile-time pattern tables of the diff kernels equal the pattern
     the port detects (a false zero would silently drop dynamics terms) for
@@ -207,18 +313,35 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _gpu_cfg(pattern):
+    """Sweep shape of a compiled specialisation: diff, dense (7x2) or omni4
+    (nx=11, nu=4, bounds (7, 8, 9, 10) / (0, 1, 2, 3))."""
+    if pattern == "omni4":
+        return tp.SweepConfig(*header_config("config_omni4.cuh"))
+    return tp.SweepConfig(NX, NU, IDXBX, IDXBU, *PATTERNS[pattern])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("pattern", list(PATTERNS))
-@pytest.mark.parametrize("lanes", [1, 1000, 2048])
-def test_cuda_sweeps_match_plain(cuda_device, lanes, pattern):
-    asp, bsp = PATTERNS[pattern]
-    cfg = tp.SweepConfig(NX, NU, IDXBX, IDXBU, asp, bsp)
-    x = random_sweep_inputs(NX, NU, 2, 2, asp, bsp, 40, lanes, seed=5)
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("pattern", [*PATTERNS, "omni4"])
+@pytest.mark.parametrize("horizon", [1, 40, 80])
+@pytest.mark.parametrize("lanes", [1, 17, 1000, 2048])
+def test_cuda_sweeps_match_plain(cuda_device, lanes, horizon, pattern, shifted):
+    """Every sweep kernel against its plain version on the card; 17 lanes are
+    ragged and break 16-byte alignment of the batch rows, and ``shifted``
+    inputs start 4 bytes past a 16-byte boundary."""
+    cfg = _gpu_cfg(pattern)
+    x = random_sweep_inputs(cfg.nx, cfg.nu, cfg.nbx, cfg.nbu, cfg.asp, cfg.bsp, horizon,
+                            lanes, seed=5)
 
     def dev(v):
         if isinstance(v, tuple):
             return tuple(dev(t) for t in v)
-        return _t(v).to(cuda_device)
+        t = _t(v).to(cuda_device)
+        if shifted:
+            buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)
+            t = buf[1:].view(t.shape).copy_(t)
+        return t
 
     a = {k: dev(v) for k, v in x.items()}
     bwd_args = (a["A"], a["Bm"], a["Qd"], a["Rd"], a["qx"], a["qu"], a["c"],
@@ -246,3 +369,28 @@ def _compare_cuda(got, ref):
     for name, g, r in zip(ref._fields, got, ref):
         for gi, ri in zip(*((g, r) if isinstance(r, tuple) else ((g,), (r,)))):
             torch.testing.assert_close(gi, ri, rtol=RTOL, atol=ATOL, msg=name)
+
+
+@pytest.mark.gpu
+def test_cuda_nonfinite_lanes_match_plain(cuda_device):
+    """The non-finite input set of ``test_nonfinite_lanes_match_pallas``
+    through the three redesigned kernels: NaN and Inf in the same places as
+    the plain versions, alpha, finite, c12 and musum per lane equal."""
+    cfg = tp.SweepConfig(NX, NU, IDXBX, IDXBU, *DIFF_SP)
+    x = _nonfinite_set(cfg, N, B)
+    args = _nonfinite_args(x, lambda v: _t(v).to(cuda_device))
+    outs = []
+    for kern, plain, a, kw in ((tp.ipm_bwd_fused, tp.bwd_fused_plain, args[0],
+                                dict(reg=REG, d_cap=D_CAP)),
+                               (tp.ipm_fwd_affine, tp.fwd_affine_plain, args[1], dict(tau=TAU)),
+                               (tp.ipm_fwd_corr, tp.fwd_corr_plain, args[2], dict(tau=TAU))):
+        got, ref = kern(cfg, *a, **kw), plain(cfg, *a, **kw)
+        torch.cuda.synchronize()
+        for name, g, r in zip(ref._fields, got, ref):
+            for i, (gi, ri) in enumerate(zip(*((g, r) if isinstance(r, tuple) else ((g,), (r,))))):
+                _assert_same_nonfinite(gi.cpu().numpy(), ri.cpu().numpy(),
+                                       f"{kern.__name__} {name}[{i}]")
+        outs.append(got)
+    _check_nonfinite_semantics(
+        dict(musum=outs[0].musum.cpu().numpy()), dict(alpha=outs[1].alpha.cpu().numpy()),
+        dict(alpha=outs[2].alpha.cpu().numpy(), finite=outs[2].finite.cpu().numpy()))
