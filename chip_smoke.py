@@ -12,8 +12,9 @@ It imports nothing of JAX.  Phases, each printing one line per result:
      dynamic;
   2. each IPM sweep kernel against its plain torch version on the card, on
      random valid IPM inputs for the diff and the omni4 specialisations, at
-     N=40 with B = 2048, 1 and 1000 (a ragged last block) and at N=80 with
-     B=17 (ragged, batch rows not 16-byte aligned), within rtol 1e-4 /
+     N=40 with B = 2048, 1 and 1000 (a ragged last block), at N=80 with
+     B=17 (ragged, batch rows not 16-byte aligned) and at N=13 with B=17 (no
+     multiple of any sweep's chunk of stages), within rtol 1e-4 /
      atol 1e-5; kernel and plain times at B=2048 from CUDA events, device
      times from the profiler at B=2048 and B=1;
   3. the main path: 20 chained batched ``controller_step`` ticks, diff N=40,
@@ -409,11 +410,12 @@ def main() -> int:
     # The JSON line carries the diff numbers (the main path of phase 3); the
     # omni4 specialisation is checked and timed too (phase 8's path).  N=80
     # at B=17 (ragged, rows not 16-byte aligned) holds the kernels at the
-    # reference's horizon; B=1 gives each kernel's device time for one lane.
+    # reference's horizon, N=13 a short last chunk; B=1 gives each kernel's
+    # device time for one lane.
     record["ipm_omni4"], record["device_ms_B1"] = {}, {}
     for config, cfg in cfgs.items():
         nx, nu, nbx, nbu = cfg.nx, cfg.nu, cfg.nbx, cfg.nbu
-        for lanes, horizon in ((2048, N), (1, N), (1000, N), (17, 2 * N)):
+        for lanes, horizon in ((2048, N), (1, N), (1000, N), (17, 2 * N), (17, 13)):
             x = random_sweep_inputs(nx, nu, nbx, nbu, cfg.asp, cfg.bsp, horizon, lanes, seed=lanes)
             for name, (kern, plain, args) in _sweep_calls(torch, tp, cfg, x, dev).items():
                 got, ref = kern(), plain()

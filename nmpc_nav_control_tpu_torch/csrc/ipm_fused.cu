@@ -23,8 +23,8 @@
 // Bound.  Each stage reads 60-180 floats per lane and does a few hundred to
 // a few thousand flops on them, and a lane's stages run in sequence, so each
 // sweep is bound by its serial chain per lane and by memory latency, far
-// from the card's bandwidth or flop rate.  The two sweeps that cost the most
-// are built for that:
+// from the card's bandwidth or flop rate.  Every sweep splits a lane's
+// stages so that only the carry is sequential:
 //
 //   fwd_kernel (ipm_fwd_affine, ipm_fwd_corr): a block owns kFwdLanes lanes
 //   and walks the horizon in chunks of S stages.  Warp 0 rolls the chunk out
@@ -48,8 +48,18 @@
 //   next stage's first half.  Results leave through a shared-memory tile that
 //   the producers write out a row of 8 lanes at a time.
 //
-// The other three sweeps keep one thread per lane with the stage loop inside
-// the thread and their carries in registers (kThreads-thread blocks).
+//   bwd_corr_kernel (ipm_bwd_corr), kkt_kernel (ipm_kkt_fused): one
+//   skeleton (vec_sweep), fwd_kernel's split run backward.  A block owns
+//   kFwdLanes lanes and walks the horizon from its end in chunks of S
+//   stages.  Warp 0 runs the short chain, one thread per lane, from a
+//   shared-memory ring: p <- A'(p + w) + K'qu_bar with qu_bar = gu + B'(p +
+//   w) for bwd_corr; nu = gx + c, c <- A'nu and beside it max |gu + B'nu|
+//   for kkt.  Meanwhile the other warps, one thread per (stage, lane), copy
+//   the next chunk's A and B (and K) with cp.async and compute its
+//   carry-free vectors from its bound entries (w = gx + Pc and gu; gx, gu
+//   and sum s*lam, reduced per lane at the end); bwd_corr's fan-out also
+//   finishes the last chunk from the qu_bar the chain left in the ring,
+//   kff = -(L L')^{-1} qu_bar.
 //
 // Arithmetic is IEEE f32: the library is built without --use_fast_math.  The
 // finiteness flag must see NaN and Inf, lambda/s runs up to the 1e10 cap at
@@ -68,7 +78,6 @@
 namespace {
 
 constexpr float kBig = 3.4e38f;  // fraction-to-boundary sentinel (_BIG)
-constexpr int kThreads = 128;
 
 __device__ __forceinline__ float min_nan(float a, float b) {
   return (a != a || b != b) ? a + b : fminf(a, b);
@@ -238,38 +247,6 @@ __device__ __forceinline__ void grad_terms(const float (&Qdn)[C::NX], const floa
   for (int i = 0; i < C::NU; ++i) gu[i] = Rd[i] * du[i] + qu[i];
 #pragma unroll
   for (int j = 0; j < C::IDXBU::size; ++j) gu[C::IDXBU::at(j)] += leu[1][j] - leu[0][j];
-}
-
-// One stage of the backward vector recursion with the diagonal-free carry:
-// tmp = p + gx + Pc, qu_bar = gu + B' tmp, kff = -(L L')^{-1} qu_bar,
-// p <- A' tmp + K' qu_bar.
-template <class C>
-__device__ __forceinline__ void vector_bwd(const float (&A)[C::NX][C::NX],
-                                           const float (&Bm)[C::NX][C::NU],
-                                           const float (&K)[C::NU][C::NX],
-                                           const float (&L)[C::NU * (C::NU + 1) / 2],
-                                           const float (&Pc)[C::NX], const float (&gx)[C::NX],
-                                           const float (&gu)[C::NU], float (&p)[C::NX],
-                                           float (&kff)[C::NU]) {
-  constexpr int NX = C::NX, NU = C::NU;
-  float tmp[NX], qub[NU], sol[NU];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) tmp[i] = p[i] + gx[i] + Pc[i];
-#pragma unroll
-  for (int i = 0; i < NU; ++i) {
-    qub[i] = gu[i] + col_dot<typename C::B>(Bm, i, tmp);
-    sol[i] = qub[i];
-  }
-  chol_solve<NU>(L, sol);
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-    float kt = 0.f;
-#pragma unroll
-    for (int m = 0; m < NU; ++m) kt += K[m][i] * qub[m];
-    p[i] = col_dot<typename C::A>(A, i, tmp) + kt;
-  }
-#pragma unroll
-  for (int i = 0; i < NU; ++i) kff[i] = -sol[i];
 }
 
 // Bound groups are ordered (x lower, x upper, u lower, u upper) throughout.
@@ -1081,8 +1058,82 @@ __global__ void __launch_bounds__(FwdPlan<C>::THREADS) fwd_kernel(FwdArgs a, int
 }
 
 // --------------------------------------------------------------------------
-// Kernel 3: corrector backward sweep (vector recursion, gradients in-kernel)
+// Kernels 3 and 5: backward vector sweeps (corrector recursion, KKT)
 // --------------------------------------------------------------------------
+
+// Shared-memory plan of bwd_corr_kernel (KKT false) and kkt_kernel (KKT
+// true): TL lanes per block, the horizon walked backward in chunks of S
+// stages.  Warp 0 runs the chain, one thread per lane; the NF = S * TL
+// fan-out threads, one per (stage, lane) of a chunk, prepare the next chunk
+// (and for bwd_corr finish the last one).  The ring holds two chunks as
+// [S][E][TL], stage s of a chunk being its s-th row in memory order:
+//   bwd_corr: A, B packed and K (copied by cp.async), w = gx + Pc and gu
+//             (fan-out), qu_bar (chain);
+//   kkt:      A, B packed (cp.async), gx and gu (fan-out).
+template <class C, bool KKT>
+struct VecPlan {
+  static constexpr int NX = C::NX, NU = C::NU, TL = kFwdLanes;
+  static constexpr int NNZA = C::A::count(), NNZB = C::B::count();
+  static constexpr int OA = 0, OB = NNZA, OK = OB + NNZB, OW = OK + (KKT ? 0 : NU * NX),
+                       OGU = OW + NX, OV = OGU + NU, E = OV + (KKT ? 0 : NU);
+  static constexpr int S_FIT = kFwdRingBytes / (2 * E * TL * 4);
+  static constexpr int S = S_FIT < 8 ? S_FIT : 8;
+  static_assert(S >= 1 && TL % 4 == 0 && TL <= 32, "ring too small for one stage");
+  static constexpr int NF = S * TL, THREADS = 32 + NF;
+  static constexpr int RING = S * E * TL, SMEM = 2 * RING * 4;
+  static_assert(RING >= NF, "the final reduction reuses the ring");
+};
+
+// The skeleton both sweeps share.  Chunk q holds stages [lo(q), hi(q)),
+// hi(q) = N - q S; the chain walks it from its last stage down, carrying
+// its vector in registers, while the fan-out threads copy and prepare chunk
+// q + 1 into the other ring slot and finish chunk q - 1 from it (prepare
+// writes only the copied and fan-out entries, finish reads only the chain's
+// entry, so the two share the slot).  Lanes at or past B take part in
+// every step on the ring's initial zeros and store nothing.
+//   copy(r, k0, sc):      issue the chunk's cp.async copies into slot r;
+//   prepare(R, k):        fan-out, stage k's carry-free entries into R;
+//   finish(R, k):         fan-out, stage k's work on the chain's result
+//                         (kkt has none: its chain takes max |ru| itself);
+//   step(R):              chain, one stage from its slot entry R.
+template <class F, class Copy, class Prepare, class Finish, class Step>
+__device__ __forceinline__ void vec_sweep(float* smem, int N, Copy copy, Prepare prepare,
+                                          Finish finish, Step step) {
+  constexpr int TL = F::TL, SC = F::S;
+  const int tid = threadIdx.x, nch = (N + SC - 1) / SC;
+  const bool chain = tid < 32;
+  const int f = tid - 32, fl = f % TL, fs = f / TL;
+  auto lo = [&](int q) { return max(0, N - (q + 1) * SC); };
+  auto hi = [&](int q) { return N - q * SC; };
+  auto slot = [&](int q) { return smem + (q & 1) * F::RING; };
+  auto item = [&](int q) { return slot(q) + fs * F::E * TL + fl; };
+
+  for (int i = tid; i < 2 * F::RING; i += F::THREADS) smem[i] = 0.f;
+  __syncthreads();
+  if (!chain) {
+    copy(slot(0), lo(0), hi(0) - lo(0));
+    if (fs < hi(0) - lo(0)) prepare(item(0), lo(0) + fs);
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int q = 0; q < nch; ++q) {
+    if (chain) {
+      if (tid < TL) {
+        float* r = slot(q) + tid;
+#pragma unroll 1
+        for (int s = hi(q) - lo(q) - 1; s >= 0; --s) step(r + s * F::E * TL);
+      }
+    } else {
+      if (q + 1 < nch) copy(slot(q + 1), lo(q + 1), hi(q + 1) - lo(q + 1));
+      if (q >= 1 && fs < hi(q - 1) - lo(q - 1)) finish(item(q - 1), lo(q - 1) + fs);
+      if (q + 1 < nch && fs < hi(q + 1) - lo(q + 1)) prepare(item(q + 1), lo(q + 1) + fs);
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+  }
+  if (!chain && fs < hi(nch - 1) - lo(nch - 1)) finish(item(nch - 1), lo(nch - 1) + fs);
+}
 
 struct BwdCorrArgs {
   const float *A, *Bm, *K, *L, *Pc, *Qd, *qx, *dx, *Rd, *qu, *du;
@@ -1091,30 +1142,34 @@ struct BwdCorrArgs {
   float* kff;
 };
 
+// Corrector vector recursion: tmp = p + w, w = gx + Pc, qu_bar = gu + B'
+// tmp, p <- A' tmp + K' qu_bar (the chain); the effective multiplier
+// gradients (sigma mu - corr)/s - (lam/s) rp, gx, gu and w before it, and
+// kff = -(L L')^{-1} qu_bar after it (fan-out).
 template <class C>
-__global__ void __launch_bounds__(kThreads) bwd_corr_kernel(BwdCorrArgs a, int N, int B) {
+__global__ void __launch_bounds__(VecPlan<C, false>::THREADS)
+    bwd_corr_kernel(BwdCorrArgs a, int N, int B) {
   using S = Shape<C>;
-  constexpr int NX = S::NX, NU = S::NU, NBX = S::NBX, NBU = S::NBU;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  using F = VecPlan<C, false>;
+  using PA = typename C::A;
+  using PB = typename C::B;
+  constexpr int NX = S::NX, NU = S::NU, NBX = S::NBX, NBU = S::NBU, NTRU = S::NTRU, TL = F::TL;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, b0 = blockIdx.x * TL;
+  const int f = tid - 32, b = b0 + f % TL;
+  const bool live = tid >= 32 && b < B;
+  const float sm = live ? __ldg(a.sigma_mu + b) : 0.f;
 
-  float p[NX];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) p[i] = 0.f;
-  const float sm = __ldg(a.sigma_mu + b);
-
-#pragma unroll 1
-  for (int k = N - 1; k >= 0; --k) {
-    float A[NX][NX], Bm[NX][NU], K[NU][NX], L[S::NTRU], Pc[NX];
-    load_packed<typename C::A>(A, a.A, k, S::NNZA, B, b);
-    load_packed<typename C::B>(Bm, a.Bm, k, S::NNZB, B, b);
-#pragma unroll
-    for (int i = 0; i < NU; ++i)
-#pragma unroll
-      for (int j = 0; j < NX; ++j) K[i][j] = ld(a.K, k, i * NX + j, NU * NX, B, b);
-    load_vec(L, a.L, k, B, b);
+  auto copy = [&, a](float* r, int k0, int sc) {
+    copy_chunk_rows<F, S::NNZA>(r, F::OA, a.A, k0, sc, b0, B, f, F::NF);
+    copy_chunk_rows<F, S::NNZB>(r, F::OB, a.Bm, k0, sc, b0, B, f, F::NF);
+    copy_chunk_rows<F, NU * NX>(r, F::OK, a.K, k0, sc, b0, B, f, F::NF);
+    cp_async_commit();
+  };
+  auto prepare = [&, a](float* R, int k) {
+    if (!live) return;
+    float Pc[NX], Qdn[NX], qxn[NX], dxn[NX], Rd[NU], qu[NU], du[NU];
     load_vec(Pc, a.Pc, k, B, b);
-    float Qdn[NX], qxn[NX], dxn[NX], Rd[NU], qu[NU], du[NU];
     load_vec(Qdn, a.Qd, k + 1, B, b);
     load_vec(qxn, a.qx, k + 1, B, b);
     load_vec(dxn, a.dx, k + 1, B, b);
@@ -1126,8 +1181,6 @@ __global__ void __launch_bounds__(kThreads) bwd_corr_kernel(BwdCorrArgs a, int N
     l.load(a.l, k, B, b);
     rp.load(a.rp, k, B, b);
     co.load(a.corr, k, B, b);
-
-    // Effective multiplier gradients (sigma mu - corr)/s - (lam/s) rp.
     float lex[2][NBX], leu[2][NBU];
 #pragma unroll
     for (int g = 0; g < 2; ++g) {
@@ -1138,17 +1191,59 @@ __global__ void __launch_bounds__(kThreads) bwd_corr_kernel(BwdCorrArgs a, int N
       for (int j = 0; j < NBU; ++j)
         leu[g][j] = (sm - co.u[g][j]) / s.u[g][j] - (l.u[g][j] / s.u[g][j]) * rp.u[g][j];
     }
-    float gx[NX], gu[NU], kff[NU];
+    float gx[NX], gu[NU];
     grad_terms<C>(Qdn, qxn, dxn, Rd, qu, du, lex, leu, gx, gu);
-    vector_bwd<C>(A, Bm, K, L, Pc, gx, gu, p, kff);
 #pragma unroll
-    for (int i = 0; i < NU; ++i) st(a.kff, k, i, NU, B, b, kff[i]);
-  }
+    for (int i = 0; i < NX; ++i) R[(F::OW + i) * TL] = gx[i] + Pc[i];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) R[(F::OGU + i) * TL] = gu[i];
+  };
+  // A lane past B solves with L = I on qu_bar = 0.
+  auto finish = [&, a](float* R, int k) {
+    float L[NTRU], x[NU];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+#pragma unroll
+      for (int j = 0; j <= i; ++j)
+        L[tri(i, j)] = live ? ld(a.L, k, tri(i, j), NTRU, B, b) : (i == j ? 1.f : 0.f);
+      x[i] = R[(F::OV + i) * TL];
+    }
+    chol_solve<NU>(L, x);
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < NU; ++i) st(a.kff, k, i, NU, B, b, -x[i]);
+    }
+  };
+  float p[NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) p[i] = 0.f;
+  // Every load of the stage first, its one store last.
+  auto step = [&](float* R) {
+    float A[NX][NX], Bm[NX][NU], K[NU][NX], tmp[NX], gu[NU], qub[NU];
+    load_packed_smem<PA, NX, NX, TL>(A, R + F::OA * TL);
+    load_packed_smem<PB, NX, NU, TL>(Bm, R + F::OB * TL);
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      gu[i] = R[(F::OGU + i) * TL];
+#pragma unroll
+      for (int j = 0; j < NX; ++j) K[i][j] = R[(F::OK + i * NX + j) * TL];
+    }
+#pragma unroll
+    for (int i = 0; i < NX; ++i) tmp[i] = p[i] + R[(F::OW + i) * TL];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) qub[i] = gu[i] + col_dot<PB>(Bm, i, tmp);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      float kt = 0.f;
+#pragma unroll
+      for (int m = 0; m < NU; ++m) kt += K[m][i] * qub[m];
+      p[i] = col_dot<PA>(A, i, tmp) + kt;
+    }
+#pragma unroll
+    for (int i = 0; i < NU; ++i) R[(F::OV + i) * TL] = qub[i];
+  };
+  vec_sweep<F>(smem, N, copy, prepare, finish, step);
 }
-
-// --------------------------------------------------------------------------
-// Kernel 5: post-solve KKT stationarity + complementarity
-// --------------------------------------------------------------------------
 
 struct KKTArgs {
   const float *A, *Bm, *Qd, *qx, *dx, *Rd, *qu, *du;
@@ -1156,25 +1251,32 @@ struct KKTArgs {
   float *kkt, *musum;
 };
 
-// Costate recursion nu_{k+1} = gx_{k+1} + c, c <- A_k' nu_{k+1};
-// ru_k = gu_k + B_k' nu_{k+1}; kkt = max_k |ru_k|.
+// Costate recursion nu_{k+1} = gx_{k+1} + c, c <- A_k' nu_{k+1}, and beside
+// it ru_k = gu_k + B_k' nu_{k+1} with max |ru| (from 0, NaN propagating like
+// jnp.maximum), stage by stage in the order of the TPU kernel (the chain);
+// gx, gu and each (stage, lane)'s share of sum s*lam before it (fan-out),
+// the shares reduced per lane at the end.
 template <class C>
-__global__ void __launch_bounds__(kThreads) kkt_kernel(KKTArgs a, int N, int B) {
+__global__ void __launch_bounds__(VecPlan<C, true>::THREADS)
+    kkt_kernel(KKTArgs a, int N, int B) {
   using S = Shape<C>;
-  constexpr int NX = S::NX, NU = S::NU, NBX = S::NBX, NBU = S::NBU;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-
-  float c[NX];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) c[i] = 0.f;
+  using F = VecPlan<C, true>;
+  using PA = typename C::A;
+  using PB = typename C::B;
+  constexpr int NX = S::NX, NU = S::NU, NBX = S::NBX, NBU = S::NBU, TL = F::TL;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, b0 = blockIdx.x * TL;
+  const int f = tid - 32, b = b0 + (tid < 32 ? tid : f % TL);
+  const bool live = b < B && (tid >= 32 || tid < TL);
   float m = 0.f, mu = 0.f;
 
-#pragma unroll 1
-  for (int k = N - 1; k >= 0; --k) {
-    float A[NX][NX], Bm[NX][NU];
-    load_packed<typename C::A>(A, a.A, k, S::NNZA, B, b);
-    load_packed<typename C::B>(Bm, a.Bm, k, S::NNZB, B, b);
+  auto copy = [&, a](float* r, int k0, int sc) {
+    copy_chunk_rows<F, S::NNZA>(r, F::OA, a.A, k0, sc, b0, B, f, F::NF);
+    copy_chunk_rows<F, S::NNZB>(r, F::OB, a.Bm, k0, sc, b0, B, f, F::NF);
+    cp_async_commit();
+  };
+  auto prepare = [&, a](float* R, int k) {
+    if (!live) return;
     float Qdn[NX], qxn[NX], dxn[NX], Rd[NU], qu[NU], du[NU];
     load_vec(Qdn, a.Qd, k + 1, B, b);
     load_vec(qxn, a.qx, k + 1, B, b);
@@ -1185,22 +1287,46 @@ __global__ void __launch_bounds__(kThreads) kkt_kernel(KKTArgs a, int N, int B) 
     Groups<C> l, s;
     l.load(a.l, k, B, b);
     s.load(a.s, k, B, b);
-
-    float gx[NX], gu[NU], nu_v[NX];
+    float gx[NX], gu[NU];
     grad_terms<C>(Qdn, qxn, dxn, Rd, qu, du, l.x, l.u, gx, gu);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) nu_v[i] = gx[i] + c[i];
-#pragma unroll
-    for (int i = 0; i < NU; ++i) m = max_nan(m, fabsf(gu[i] + col_dot<typename C::B>(Bm, i, nu_v)));
 #pragma unroll
     for (int j = 0; j < NBX; ++j) mu = mu + (s.x[0][j] * l.x[0][j] + s.x[1][j] * l.x[1][j]);
 #pragma unroll
     for (int j = 0; j < NBU; ++j) mu = mu + (s.u[0][j] * l.u[0][j] + s.u[1][j] * l.u[1][j]);
 #pragma unroll
-    for (int i = 0; i < NX; ++i) c[i] = col_dot<typename C::A>(A, i, nu_v);
+    for (int i = 0; i < NX; ++i) R[(F::OW + i) * TL] = gx[i];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) R[(F::OGU + i) * TL] = gu[i];
+  };
+  float c[NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) c[i] = 0.f;
+  auto step = [&](float* R) {
+    float A[NX][NX], Bm[NX][NU], nu_v[NX], gu[NU];
+    load_packed_smem<PA, NX, NX, TL>(A, R + F::OA * TL);
+    load_packed_smem<PB, NX, NU, TL>(Bm, R + F::OB * TL);
+#pragma unroll
+    for (int i = 0; i < NU; ++i) gu[i] = R[(F::OGU + i) * TL];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) nu_v[i] = R[(F::OW + i) * TL] + c[i];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) m = max_nan(m, fabsf(gu[i] + col_dot<PB>(Bm, i, nu_v)));
+#pragma unroll
+    for (int i = 0; i < NX; ++i) c[i] = col_dot<PA>(A, i, nu_v);
+  };
+  vec_sweep<F>(smem, N, copy, prepare, [](float*, int) {}, step);
+
+  // Sum s*lam over each lane's S fan-out rows, in row order, over the ring.
+  __syncthreads();
+  if (tid >= 32) smem[f] = mu;
+  __syncthreads();
+  if (tid < TL && live) {
+    mu = smem[tid];
+#pragma unroll 1
+    for (int r = 1; r < F::S; ++r) mu = mu + smem[r * TL + tid];
+    a.kkt[b] = m;
+    a.musum[b] = mu;
   }
-  a.kkt[b] = m;
-  a.musum[b] = mu;
 }
 
 // --------------------------------------------------------------------------
@@ -1220,8 +1346,6 @@ struct PtrReader {
     for (auto& p : g.g) p = out();
   }
 };
-
-inline dim3 grid_of(int B) { return dim3((B + kThreads - 1) / kThreads); }
 
 // Allow a kernel the dynamic shared memory it launches with (above 48 KB this
 // is required); the launcher returns a failure like a launch error.
@@ -1288,7 +1412,10 @@ int launch_bwd_corr(void* const* ptrs, int n, int N, int B, cudaStream_t stream)
   a.du = r.in();
   r.in(a.s); r.in(a.l); r.in(a.rp); r.in(a.corr); a.sigma_mu = r.in();
   a.kff = r.out();
-  bwd_corr_kernel<C><<<grid_of(B), kThreads, 0, stream>>>(a, N, B);
+  using F = VecPlan<C, false>;
+  static const int attr = smem_attr(bwd_corr_kernel<C>, F::SMEM);
+  if (attr != 0) return attr;
+  bwd_corr_kernel<C><<<(B + F::TL - 1) / F::TL, F::THREADS, F::SMEM, stream>>>(a, N, B);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1301,7 +1428,10 @@ int launch_kkt(void* const* ptrs, int n, int N, int B, cudaStream_t stream) {
   a.Rd = r.in(); a.qu = r.in(); a.du = r.in();
   r.in(a.l); r.in(a.s);
   a.kkt = r.out(); a.musum = r.out();
-  kkt_kernel<C><<<grid_of(B), kThreads, 0, stream>>>(a, N, B);
+  using F = VecPlan<C, true>;
+  static const int attr = smem_attr(kkt_kernel<C>, F::SMEM);
+  if (attr != 0) return attr;
+  kkt_kernel<C><<<(B + F::TL - 1) / F::TL, F::THREADS, F::SMEM, stream>>>(a, N, B);
   return static_cast<int>(cudaGetLastError());
 }
 

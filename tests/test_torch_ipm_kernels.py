@@ -187,7 +187,8 @@ def _nonfinite_set(cfg, N, lanes, seed=3):
     aff = tp.fwd_affine_plain(cfg, *fwd, tau=TAU)
     x = {k: tuple(np.array(t) for t in v) if isinstance(v, tuple) else np.array(v)
          for k, v in x.items()}
-    x.update(K=bwd.K.numpy(), kff=bwd.kff.numpy().copy(), rdyn=bwd.rdyn.numpy().copy(),
+    x.update(K=bwd.K.numpy(), L=bwd.L.numpy(), Pc=bwd.Pc.numpy(),
+             kff=bwd.kff.numpy().copy(), rdyn=bwd.rdyn.numpy().copy(),
              rp=tuple(r.numpy().copy() for r in bwd.rp),
              corr=tuple((aff.alpha * c).numpy() for c in aff.corr))
     ix = cfg.idxbx[0]
@@ -274,6 +275,72 @@ def test_nonfinite_lanes_match_pallas():
         dict(alpha=pc.alpha.numpy(), finite=pc.finite.numpy()))
 
 
+# Lanes the backward vector sweeps add to the set: a NaN corrector product at
+# stage FAULT_STAGE, a NaN multiplier there, an Inf in qx at its consumption
+# row (stage FAULT_STAGE).
+NAN_CORR_LANE, NAN_LAM_LANE, INF_QX_LANE, FAULT_STAGE = 130, 260, 390, 3
+
+
+def _vector_set(cfg, N, lanes):
+    """The non-finite set with the three lanes above added, for
+    ``bwd_corr`` and ``kkt`` (the slack-floor lane stays as it is)."""
+    x = _nonfinite_set(cfg, N, lanes)
+    x["corr"][0][FAULT_STAGE, 1, NAN_CORR_LANE] = np.nan
+    x["lam"][1][FAULT_STAGE, 0, NAN_LAM_LANE] = np.nan
+    x["qx"][FAULT_STAGE + 1, 2, INF_QX_LANE] = np.inf
+    return x
+
+
+def _vector_args(x, conv):
+    """(bwd_corr args, kkt args) with ``conv`` applied to every array."""
+    g = {k: tuple(conv(t) for t in v) if isinstance(v, tuple) else conv(v) for k, v in x.items()}
+    bc = (g["A"], g["Bm"], g["K"], g["L"], g["Pc"], g["Qd"], g["qx"], g["dx"], g["Rd"], g["qu"],
+          g["du"], g["s"], g["lam"], g["rp"], g["corr"], g["sigma_mu"])
+    kk = (g["A"], g["Bm"], g["Qd"], g["qx"], g["dx"], g["Rd"], g["qu"], g["du"], g["lam"], g["s"])
+    return bc, kk
+
+
+def _check_vector_semantics(kffc, kkt, musum):
+    """What the faulty lanes must show in any correct version: a NaN reaches
+    its stage's kff_c and every earlier one, and kkt."""
+    k = FAULT_STAGE
+    for lane in (NAN_CORR_LANE, NAN_LAM_LANE, NAN_S_LANE):
+        first = k if lane != NAN_S_LANE else 2
+        assert np.isnan(kffc[:first + 1, :, lane]).all()
+        assert np.isfinite(kffc[first + 1:, :, lane]).all()
+    assert np.isnan(kkt[NAN_LAM_LANE]) and np.isnan(musum[NAN_LAM_LANE])
+    assert not np.isfinite(kkt[INF_QX_LANE]) and np.isfinite(musum[INF_QX_LANE])
+    assert np.isfinite(kkt[NAN_CORR_LANE]) and np.isfinite(kkt[FLOOR_LANE])
+    assert np.isfinite(kffc[:, :, FLOOR_LANE]).all()
+
+
+def test_nonfinite_vector_sweeps_match_pallas():
+    """The set above through ``bwd_corr`` and ``kkt``: NaN and Inf reach the
+    same outputs, and the finite values agree, in the plain sweeps and the
+    Pallas kernels (interpret mode), diff pattern, N=6, B=1024."""
+    jnp = pytest.importorskip("jax.numpy")
+    from nmpc_nav_control_tpu.ops import pallas_ipm as jp
+
+    asp, bsp = DIFF_SP
+    cfg = tp.SweepConfig(NX, NU, IDXBX, IDXBU, asp, bsp)
+    x = _vector_set(cfg, N, B)
+    bc_a, kk_a = _vector_args(x, lambda v: jnp.asarray(_tiles(v if v.ndim == 3 else
+                                                                v.reshape(1, -1, v.shape[-1]))))
+    sp = dict(asp=asp, bsp=bsp)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("NMPC_TPU_PALLAS_INTERPRET", "1")
+        jc = jp.ipm_bwd_corr(*bc_a[:11], *bc_a[11], *bc_a[12], *bc_a[13], *bc_a[14], bc_a[15],
+                             IDXBX, IDXBU, NX, NU, **sp)
+        jk = jp.ipm_kkt_fused(*kk_a[:8], *kk_a[8], *kk_a[9], IDXBX, IDXBU, NX, NU, **sp)
+    bc_t, kk_t = _vector_args(x, _t)
+    pc = tp.bwd_corr_plain(cfg, *bc_t)
+    pk = tp.kkt_fused_plain(cfg, *kk_t)
+    _assert_same_nonfinite(pc.numpy(), _untile(jc), "kff_c")
+    _assert_same_nonfinite(pk.kkt.numpy(), _untile(jk[0]), "kkt")
+    _assert_same_nonfinite(pk.musum.numpy(), _untile(jk[1]), "musum")
+    _check_vector_semantics(pc.numpy(), pk.kkt.numpy(), pk.musum.numpy())
+
+
 def test_config_diff_header_matches_detected_pattern():
     """The compile-time pattern tables of the diff kernels equal the pattern
     the port detects (a false zero would silently drop dynamics terms) for
@@ -324,12 +391,13 @@ def _gpu_cfg(pattern):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shifted", [False, True])
 @pytest.mark.parametrize("pattern", [*PATTERNS, "omni4"])
-@pytest.mark.parametrize("horizon", [1, 40, 80])
+@pytest.mark.parametrize("horizon", [1, 13, 40, 80])
 @pytest.mark.parametrize("lanes", [1, 17, 1000, 2048])
 def test_cuda_sweeps_match_plain(cuda_device, lanes, horizon, pattern, shifted):
     """Every sweep kernel against its plain version on the card; 17 lanes are
-    ragged and break 16-byte alignment of the batch rows, and ``shifted``
-    inputs start 4 bytes past a 16-byte boundary."""
+    ragged and break 16-byte alignment of the batch rows, ``shifted`` inputs
+    start 4 bytes past a 16-byte boundary, and 13 stages are no multiple of
+    any sweep's chunk of stages."""
     cfg = _gpu_cfg(pattern)
     x = random_sweep_inputs(cfg.nx, cfg.nu, cfg.nbx, cfg.nbu, cfg.asp, cfg.bsp, horizon,
                             lanes, seed=5)
@@ -373,9 +441,10 @@ def _compare_cuda(got, ref):
 
 @pytest.mark.gpu
 def test_cuda_nonfinite_lanes_match_plain(cuda_device):
-    """The non-finite input set of ``test_nonfinite_lanes_match_pallas``
-    through the three redesigned kernels: NaN and Inf in the same places as
-    the plain versions, alpha, finite, c12 and musum per lane equal."""
+    """The non-finite input sets of ``test_nonfinite_lanes_match_pallas``
+    and ``test_nonfinite_vector_sweeps_match_pallas`` through the kernels:
+    NaN and Inf in the same places as the plain versions, alpha, finite,
+    c12, kkt and musum per lane equal."""
     cfg = tp.SweepConfig(NX, NU, IDXBX, IDXBU, *DIFF_SP)
     x = _nonfinite_set(cfg, N, B)
     args = _nonfinite_args(x, lambda v: _t(v).to(cuda_device))
@@ -394,3 +463,11 @@ def test_cuda_nonfinite_lanes_match_plain(cuda_device):
     _check_nonfinite_semantics(
         dict(musum=outs[0].musum.cpu().numpy()), dict(alpha=outs[1].alpha.cpu().numpy()),
         dict(alpha=outs[2].alpha.cpu().numpy(), finite=outs[2].finite.cpu().numpy()))
+    bc, kk = _vector_args(_vector_set(cfg, N, B), lambda v: _t(v).to(cuda_device))
+    kffc, ref = tp.ipm_bwd_corr(cfg, *bc), tp.bwd_corr_plain(cfg, *bc)
+    got, want = tp.ipm_kkt_fused(cfg, *kk), tp.kkt_fused_plain(cfg, *kk)
+    torch.cuda.synchronize()
+    _assert_same_nonfinite(kffc.cpu().numpy(), ref.cpu().numpy(), "ipm_bwd_corr kff_c")
+    for name, g, r in zip(want._fields, got, want):
+        _assert_same_nonfinite(g.cpu().numpy(), r.cpu().numpy(), f"ipm_kkt_fused {name}")
+    _check_vector_semantics(kffc.cpu().numpy(), got.kkt.cpu().numpy(), got.musum.cpu().numpy())
