@@ -28,8 +28,12 @@ It imports nothing of JAX.  Phases, each printing one line per result:
      ``tests/oracle/numpy_rti.closed_loop`` with the port's step on the card,
      within the bounds of ``tests/test_rti_oracle.py``;
   6. each Riccati kernel against its plain version on the card, at
-     (nx, nu) = (7, 2) and (11, 4), N=40, B = 2048, 1 and 1000, within the
-     f32 bounds of ``tests/test_pallas_riccati.py``; times at B=2048;
+     (nx, nu) = (7, 2) and (11, 4), N=40 with B = 2048, 1 and 1000, and
+     N = 13 and 1 with B=17 (chunk edges, a ragged last block), with a
+     non-positive Quu pivot, a NaN in c and an Inf in qx in three lanes
+     where B holds them: NaN and Inf in the same places, the finite values
+     within the f32 bounds of ``tests/test_pallas_riccati.py``; kernel and
+     plain times at B=2048, device times at B=2048 and B=1;
   7. the Riccati route (``NMPC_TPU_TILED_IPM=0``): 20 chained ticks of
      ``bench.py``'s omni4 configuration at B=2048, every lane ``ok``, launch
      counts exactly 8 / 16 / 16 Riccati kernels per tick and no IPM sweep;
@@ -91,6 +95,19 @@ def _errors(torch, got, ref, atol=ATOL, rtol=RTOL):
             v = float(torch.nan_to_num(v, nan=float("inf")).max())
             worst[i] = max(worst[i], v)
     return worst
+
+
+def _placed_errors(torch, got, ref, atol, rtol):
+    """(max abs error, worst |err| / (atol + rtol |ref|)) over the entries
+    where ``ref`` is finite; the second is inf unless NaN, +Inf and -Inf sit
+    in the same places of both."""
+    for f in (torch.isnan, torch.isposinf, torch.isneginf):
+        if not bool((f(got) == f(ref)).all()):
+            return float("inf"), float("inf")
+    ok = torch.isfinite(ref)
+    d = torch.where(ok, got - ref, 0.0).abs()
+    excess = d / (atol + rtol * torch.where(ok, ref, 0.0).abs())
+    return float(d.max()), float(excess.max())
 
 
 def _time_ms(torch, fn, reps=20):
@@ -201,8 +218,8 @@ def _flops(name, nx, nu, a, b, nb):
         "ipm_bwd_corr": vec_bwd + 2 * nx + 10 * nb,
         "ipm_fwd_corr": 2 * nu * nx + 2 * (a + b) + 14 * nb,
         "ipm_kkt_fused": 2 * (a + b) + 4 * nx + 6 * nb,
-        "riccati_factor": (4 * nx ** 3 + 6 * nu * nx * nx + nu * (nu + 1) * nx
-                           + 2 * nu * nu * nx + nu ** 3 + 2 * nx * nx),
+        "riccati_factor": (4 * nx ** 3 + 6 * nu * nx * nx + 4 * nu * nu * nx + nu ** 3
+                           + 3 * nx * nx),
         "riccati_solve_bwd": 4 * nx * nx + 4 * nx * nu + 2 * nu * nu + 2 * nx,
         "riccati_solve_fwd": 2 * nx * nx + 4 * nx * nu + 2 * nx,
     }[name]
@@ -360,7 +377,7 @@ def main() -> int:
     from nmpc_nav_control_tpu_torch.ops import ipm_fused as tp
     from nmpc_nav_control_tpu_torch.ops import riccati_fused as rf
     import torch_golden
-    from torch_sweep_inputs import random_riccati_inputs, random_sweep_inputs
+    from torch_sweep_inputs import add_riccati_faults, random_riccati_inputs, random_sweep_inputs
 
     dev = torch.device("cuda", 0)
     record = {}
@@ -527,25 +544,33 @@ def main() -> int:
 
     # ---- Phase 6: each Riccati kernel against its plain version. ----
     # The JSON line carries the (11, 4) numbers: phase 7's main path is omni4.
+    # Three lanes hold a negative pivot, a NaN and an Inf (where B has them);
+    # N = 13 and 1 at B=17 put the chunk edges of both redesigned kernels
+    # at a ragged last block.
     record["riccati_7x2"] = {}
     for nx, nu in ((7, 2), (11, 4)):
-        for lanes in (2048, 1, 1000):
-            x = random_riccati_inputs(nx, nu, N, lanes, seed=lanes)
+        for horizon, lanes in ((N, 2048), (N, 1), (N, 1000), (13, 17), (1, 17)):
+            x = add_riccati_faults(random_riccati_inputs(nx, nu, horizon, lanes, seed=lanes))
             for name, (kern, plain, args, outs) in _riccati_calls(torch, rf, x, dev).items():
                 got, ref = kern(), plain()
                 torch.cuda.synchronize()
                 got_l, ref_l = _leaves(tuple(got)), _leaves(tuple(ref))
                 abs_err, excess = 0.0, 0.0
                 for out, g, r in zip(outs, got_l, ref_l):
-                    e = _errors(torch, g, r, *RICCATI_TOL[out])
-                    abs_err, excess = max(abs_err, e[0]), max(excess, e[2])
-                print(f"phase 6 {name} ({nx},{nu}) B={lanes}: max abs err {abs_err:.3e}, "
-                      f"worst err/(atol+rtol|ref|) {excess:.3f}")
+                    e = _placed_errors(torch, g, r, *RICCATI_TOL[out])
+                    abs_err, excess = max(abs_err, e[0]), max(excess, e[1])
+                print(f"phase 6 {name} ({nx},{nu}) N={horizon} B={lanes}: max abs err "
+                      f"{abs_err:.3e}, worst err/(atol+rtol|ref|) {excess:.3f}, NaN and Inf "
+                      f"{'placed alike' if excess < float('inf') else 'placed apart'}")
                 if not excess <= 1.0:
-                    raise AssertionError(f"{name} ({nx},{nu}) B={lanes}: kernel disagrees "
-                                         "with plain version")
+                    raise AssertionError(f"{name} ({nx},{nu}) N={horizon} B={lanes}: kernel "
+                                         "disagrees with plain version")
                 k = kernels[name]
                 k["max_abs_err"] = max(k["max_abs_err"], abs_err)
+                if lanes == 1:
+                    dev_ms = _device_ms(torch, kern)
+                    print(f"phase 6 {name} ({nx},{nu}) B=1: device {dev_ms} ms")
+                    record["device_ms_B1"][f"{name}/{nx}x{nu}"] = dev_ms
                 if lanes != 2048:
                     continue
                 ms, plain_ms, dev_ms = _time_pair(torch, kern, plain)

@@ -26,7 +26,7 @@
 // from the card's bandwidth or flop rate.  Every sweep splits a lane's
 // stages so that only the carry is sequential:
 //
-//   fwd_kernel (ipm_fwd_affine, ipm_fwd_corr): a block owns kFwdLanes lanes
+//   fwd_kernel (ipm_fwd_affine, ipm_fwd_corr): a block owns kSweepLanes lanes
 //   and walks the horizon in chunks of S stages.  Warp 0 rolls the chunk out
 //   (one thread per lane, du = K dx + kff, dx' = A dx + B du + r_dyn) from
 //   operands that the other warps copied into a shared-memory ring with
@@ -50,7 +50,7 @@
 //
 //   bwd_corr_kernel (ipm_bwd_corr), kkt_kernel (ipm_kkt_fused): one
 //   skeleton (vec_sweep), fwd_kernel's split run backward.  A block owns
-//   kFwdLanes lanes and walks the horizon from its end in chunks of S
+//   kSweepLanes lanes and walks the horizon from its end in chunks of S
 //   stages.  Warp 0 runs the short chain, one thread per lane, from a
 //   shared-memory ring: p <- A'(p + w) + K'qu_bar with qu_bar = gu + B'(p +
 //   w) for bwd_corr; nu = gx + c, c <- A'nu and beside it max |gu + B'nu|
@@ -74,6 +74,7 @@
 #include "config_dense72.cuh"
 #include "config_diff.cuh"
 #include "config_omni4.cuh"
+#include "sweep.cuh"
 
 namespace {
 
@@ -92,40 +93,6 @@ __device__ __forceinline__ float finite1(float v) { return isfinite(v) ? 1.f : 0
 // Fraction-to-boundary ratio for v + alpha dv >= 0.
 __device__ __forceinline__ float ratio(float v, float dv) {
   return dv < 0.f ? -v / dv : kBig;
-}
-
-// Lane b of entry e at row k of a [rows, E, B] tensor.  Inputs are
-// read-only for the kernel's lifetime, so the load goes through the
-// non-coherent path and the compiler may move it ahead of earlier stores.
-__device__ __forceinline__ float ld(const float* p, int k, int e, int E, int B, int b) {
-  return __ldg(p + (static_cast<size_t>(k) * E + e) * B + b);
-}
-
-__device__ __forceinline__ void st(float* p, int k, int e, int E, int B, int b, float v) {
-  p[(static_cast<size_t>(k) * E + e) * B + b] = v;
-}
-
-// Asynchronous copies global -> shared (sm_80 and later): they hold no
-// register; a thread's copies of one commit group are complete, for that
-// thread, after cp_async_wait<n> leaves at most n newer groups pending.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-// 16 bytes: src and dst 16-byte aligned.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
 // Bit m set where the R x Cc pattern P has a structural nonzero at (m, j),
@@ -150,11 +117,6 @@ __device__ __forceinline__ unsigned col_mask_of(int j, std::integer_sequence<int
 template <class P, int R, int Cc>
 __device__ __forceinline__ unsigned col_mask(int j) {
   return col_mask_of<P, R>(j, std::make_integer_sequence<int, Cc>{});
-}
-
-// Index of (i, j) in a lower triangle stored row-major.
-__host__ __device__ constexpr int tri(int i, int j) {
-  return i >= j ? i * (i + 1) / 2 + j : j * (j + 1) / 2 + i;
 }
 
 template <class C>
@@ -208,26 +170,6 @@ __device__ __forceinline__ float col_dot(const float (&M)[R][Cc], int j, const f
   for (int m = 0; m < R; ++m)
     if (P::nz(m, j)) s += M[m][j] * v[m];
   return s;
-}
-
-// x <- (L L')^{-1} x, L lower row-major.
-template <int NU>
-__device__ __forceinline__ void chol_solve(const float (&L)[NU * (NU + 1) / 2], float (&x)[NU]) {
-  float y[NU];
-#pragma unroll
-  for (int i = 0; i < NU; ++i) {
-    float s = x[i];
-#pragma unroll
-    for (int k = 0; k < i; ++k) s -= L[tri(i, k)] * y[k];
-    y[i] = s / L[tri(i, i)];
-  }
-#pragma unroll
-  for (int i = NU - 1; i >= 0; --i) {
-    float s = y[i];
-#pragma unroll
-    for (int k = i + 1; k < NU; ++k) s -= L[tri(k, i)] * x[k];
-    x[i] = s / L[tri(i, i)];
-  }
 }
 
 // Stationarity gradients at the consumption rows:
@@ -299,8 +241,6 @@ struct BwdFusedArgs {
 // address, hit distinct banks.
 constexpr int kBwdRingBytes = 64 * 1024;
 
-__host__ __device__ constexpr int pad16(int n) { return n + ((16 - n % 32) % 32 + 32) % 32; }
-
 template <class C>
 struct BwdPlan {
   static constexpr int NX = C::NX, NU = C::NU, NTRU = NU * (NU + 1) / 2;
@@ -330,38 +270,6 @@ struct BwdPlan {
   static constexpr int SMEM = (2 * RING + 2 * OUT + TEAMS) * 4;
   static_assert(2 * RING >= FAN && THREADS % 32 == 0, "whole warps; the reduction reuses the ring");
 };
-
-// x <- (L L')^{-1} x with inv[i] = 1 / L_ii: the two substitutions multiply
-// by the reciprocal pivots, computed once per stage.
-template <int NU>
-__device__ __forceinline__ void chol_solve_inv(const float (&L)[NU * (NU + 1) / 2],
-                                               const float (&inv)[NU], float (&x)[NU]) {
-  float y[NU];
-#pragma unroll
-  for (int i = 0; i < NU; ++i) {
-    float s = x[i];
-#pragma unroll
-    for (int k = 0; k < i; ++k) s -= L[tri(i, k)] * y[k];
-    y[i] = s * inv[i];
-  }
-#pragma unroll
-  for (int i = NU - 1; i >= 0; --i) {
-    float s = y[i];
-#pragma unroll
-    for (int k = i + 1; k < NU; ++k) s -= L[tri(k, i)] * x[k];
-    x[i] = s * inv[i];
-  }
-}
-
-// Row of PX floats (PX % 4 == 0) from 16-byte aligned shared memory.
-template <int PX>
-__device__ __forceinline__ void load_row(float (&row)[PX], const float* p) {
-#pragma unroll
-  for (int m = 0; m < PX; m += 4) {
-    const float4 q = *reinterpret_cast<const float4*>(p + m);
-    row[m] = q.x, row[m + 1] = q.y, row[m + 2] = q.z, row[m + 3] = q.w;
-  }
-}
 
 template <class C>
 __global__ void __launch_bounds__(BwdPlan<C>::THREADS, 2)
@@ -799,15 +707,13 @@ __device__ __forceinline__ void fwd_delta(float s, float lam, float rp, float co
 // The ring holds two chunks of the rollout operands (A, B packed, K, kff,
 // r_dyn) as [S][E][TL]; the rollout writes dx (S + 1 rows, the first being
 // the chunk's start) and du (S rows) of a chunk into one of two slots.
-constexpr int kFwdLanes = 16;
-constexpr int kFwdRingBytes = 160 * 1024;
 
 template <class C>
 struct FwdPlan {
-  static constexpr int NX = C::NX, NU = C::NU, TL = kFwdLanes;
+  static constexpr int NX = C::NX, NU = C::NU, TL = kSweepLanes;
   static constexpr int OA = 0, OB = C::A::count(), OK = OB + C::B::count(), OKFF = OK + NU * NX,
                        ORD = OKFF + NU, E = ORD + NX;
-  static constexpr int S_FIT = kFwdRingBytes / (2 * E * TL * 4);
+  static constexpr int S_FIT = kSweepRingBytes / (2 * E * TL * 4);
   static constexpr int S = S_FIT < 8 ? S_FIT : 8;
   static_assert(S >= 1 && TL % 4 == 0, "ring too small for one stage");
   static constexpr int NF = S * TL, THREADS = 32 + NF;  // warp 0 rolls out, NF fan out
@@ -815,34 +721,6 @@ struct FwdPlan {
   static constexpr int SMEM = (2 * RING + 2 * (DX + DU)) * 4;
   static_assert(2 * RING >= 4 * NF, "the final reduction reuses the ring");
 };
-
-// Copy rows k0 .. k0 + sc - 1 (entries [0, E)) of a [rows, E, B] tensor into
-// the ring slot at entry off: [s][off + e][l] for lanes b0 + l.  16-byte
-// copies where the tensor starts 16-byte aligned and B % 4 == 0 (then every
-// row start is), else 4.
-template <class F, int E>
-__device__ __forceinline__ void copy_chunk_rows(float* ring, int off, const float* src, int k0,
-                                                int sc, int b0, int B, int t, int nt) {
-  constexpr int TL = F::TL;
-  if (B % 4 == 0 && reinterpret_cast<size_t>(src) % 16 == 0) {
-    constexpr int Q = TL / 4;
-#pragma unroll 1
-    for (int i = t; i < sc * E * Q; i += nt) {
-      const int q = i % Q, r = i / Q, e = r % E, s = r / E, bb = b0 + 4 * q;
-      if (bb < B)
-        cp_async16(ring + (s * F::E + off + e) * TL + 4 * q,
-                   src + (static_cast<size_t>(k0 + s) * E + e) * B + bb);
-    }
-  } else {
-#pragma unroll 1
-    for (int i = t; i < sc * E * TL; i += nt) {
-      const int l = i % TL, r = i / TL, e = r % E, s = r / E, bb = b0 + l;
-      if (bb < B)
-        cp_async4(ring + (s * F::E + off + e) * TL + l,
-                  src + (static_cast<size_t>(k0 + s) * E + e) * B + bb);
-    }
-  }
-}
 
 // Row-major packed pattern P read from shared memory: entry e at p[e * TL].
 template <class P, int R, int Cc, int TL>
@@ -1072,68 +950,17 @@ __global__ void __launch_bounds__(FwdPlan<C>::THREADS) fwd_kernel(FwdArgs a, int
 //   kkt:      A, B packed (cp.async), gx and gu (fan-out).
 template <class C, bool KKT>
 struct VecPlan {
-  static constexpr int NX = C::NX, NU = C::NU, TL = kFwdLanes;
+  static constexpr int NX = C::NX, NU = C::NU, TL = kSweepLanes;
   static constexpr int NNZA = C::A::count(), NNZB = C::B::count();
   static constexpr int OA = 0, OB = NNZA, OK = OB + NNZB, OW = OK + (KKT ? 0 : NU * NX),
                        OGU = OW + NX, OV = OGU + NU, E = OV + (KKT ? 0 : NU);
-  static constexpr int S_FIT = kFwdRingBytes / (2 * E * TL * 4);
+  static constexpr int S_FIT = kSweepRingBytes / (2 * E * TL * 4);
   static constexpr int S = S_FIT < 8 ? S_FIT : 8;
   static_assert(S >= 1 && TL % 4 == 0 && TL <= 32, "ring too small for one stage");
   static constexpr int NF = S * TL, THREADS = 32 + NF;
   static constexpr int RING = S * E * TL, SMEM = 2 * RING * 4;
   static_assert(RING >= NF, "the final reduction reuses the ring");
 };
-
-// The skeleton both sweeps share.  Chunk q holds stages [lo(q), hi(q)),
-// hi(q) = N - q S; the chain walks it from its last stage down, carrying
-// its vector in registers, while the fan-out threads copy and prepare chunk
-// q + 1 into the other ring slot and finish chunk q - 1 from it (prepare
-// writes only the copied and fan-out entries, finish reads only the chain's
-// entry, so the two share the slot).  Lanes at or past B take part in
-// every step on the ring's initial zeros and store nothing.
-//   copy(r, k0, sc):      issue the chunk's cp.async copies into slot r;
-//   prepare(R, k):        fan-out, stage k's carry-free entries into R;
-//   finish(R, k):         fan-out, stage k's work on the chain's result
-//                         (kkt has none: its chain takes max |ru| itself);
-//   step(R):              chain, one stage from its slot entry R.
-template <class F, class Copy, class Prepare, class Finish, class Step>
-__device__ __forceinline__ void vec_sweep(float* smem, int N, Copy copy, Prepare prepare,
-                                          Finish finish, Step step) {
-  constexpr int TL = F::TL, SC = F::S;
-  const int tid = threadIdx.x, nch = (N + SC - 1) / SC;
-  const bool chain = tid < 32;
-  const int f = tid - 32, fl = f % TL, fs = f / TL;
-  auto lo = [&](int q) { return max(0, N - (q + 1) * SC); };
-  auto hi = [&](int q) { return N - q * SC; };
-  auto slot = [&](int q) { return smem + (q & 1) * F::RING; };
-  auto item = [&](int q) { return slot(q) + fs * F::E * TL + fl; };
-
-  for (int i = tid; i < 2 * F::RING; i += F::THREADS) smem[i] = 0.f;
-  __syncthreads();
-  if (!chain) {
-    copy(slot(0), lo(0), hi(0) - lo(0));
-    if (fs < hi(0) - lo(0)) prepare(item(0), lo(0) + fs);
-    cp_async_wait<0>();
-  }
-  __syncthreads();
-#pragma unroll 1
-  for (int q = 0; q < nch; ++q) {
-    if (chain) {
-      if (tid < TL) {
-        float* r = slot(q) + tid;
-#pragma unroll 1
-        for (int s = hi(q) - lo(q) - 1; s >= 0; --s) step(r + s * F::E * TL);
-      }
-    } else {
-      if (q + 1 < nch) copy(slot(q + 1), lo(q + 1), hi(q + 1) - lo(q + 1));
-      if (q >= 1 && fs < hi(q - 1) - lo(q - 1)) finish(item(q - 1), lo(q - 1) + fs);
-      if (q + 1 < nch && fs < hi(q + 1) - lo(q + 1)) prepare(item(q + 1), lo(q + 1) + fs);
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-  }
-  if (!chain && fs < hi(nch - 1) - lo(nch - 1)) finish(item(nch - 1), lo(nch - 1) + fs);
-}
 
 struct BwdCorrArgs {
   const float *A, *Bm, *K, *L, *Pc, *Qd, *qx, *dx, *Rd, *qu, *du;
@@ -1346,18 +1173,6 @@ struct PtrReader {
     for (auto& p : g.g) p = out();
   }
 };
-
-// Allow a kernel the dynamic shared memory it launches with (above 48 KB this
-// is required); the launcher returns a failure like a launch error.
-template <class Kernel>
-int smem_attr(Kernel* kernel, int bytes) {
-  return static_cast<int>(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
-}
-
-inline int bad_args(int n, int want, int N, int B) {
-  return (n != want || N <= 0 || B <= 0) ? static_cast<int>(cudaErrorInvalidValue) : 0;
-}
 
 template <class C>
 int launch_bwd_fused(void* const* ptrs, int n, int N, int B, float reg, float d_cap,

@@ -11,9 +11,13 @@
   what the wrappers take for CPU tensors) against the Pallas kernels they
   replace (``nmpc_nav_control_tpu/ops/pallas_riccati.py``) in interpret
   mode, at B=1024, N=4, within the same f32 bounds, Ps row 0 included.
-- ``gpu``: each CUDA kernel against its plain version on the card, at N=40
-  and B = 1, 1000, 2048; skips without a card.  JAX is imported only by the
-  fixtures that need it, so these run where JAX is not installed.
+- The plain versions against Pallas on lanes with a non-positive Quu pivot,
+  a NaN in c and an Inf in qx (``add_riccati_faults``): NaN and Inf in the
+  same places, N=6, B=1024.
+- ``gpu``: each CUDA kernel against its plain version on the card, at N = 1,
+  13 and 40 and B = 1, 17, 1000, 2048, the faulty lanes included; skips
+  without a card.  JAX is imported only by the fixtures that need it, so
+  these run where JAX is not installed.
 """
 import numpy as np
 import pytest
@@ -21,7 +25,14 @@ import torch
 
 from nmpc_nav_control_tpu_torch.ops import riccati_fused as rf
 from nmpc_nav_control_tpu_torch.qp import linalg_small, riccati
-from torch_sweep_inputs import random_riccati_inputs
+from torch_sweep_inputs import (
+    INF_QX_LANE,
+    NAN_C_LANE,
+    NEG_RD_LANE,
+    add_riccati_faults,
+    random_riccati_inputs,
+    riccati_fault_stage,
+)
 
 torch.set_num_threads(1)
 
@@ -168,6 +179,85 @@ def test_plain_kernels_match_pallas(nx, nu, monkeypatch):
     np.testing.assert_allclose(got_u.numpy(), bm(dus).numpy(), err_msg="dus", **F32["dus"])
 
 
+def _assert_same_nonfinite(got, want, name):
+    """NaN, +Inf and -Inf in the same places of [rows, e, B] arrays; finite
+    values within the f32 bound of the output ``name``, its rtol taken of the
+    largest finite entry of the same row and lane: at a stage whose P holds a
+    barrier-sized entry (Qd ~ 1e3), a small off-diagonal entry of L is
+    rounded by the two f32 versions in opposite directions, past the
+    entrywise bound."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64).reshape(np.shape(got))
+    for what, f in (("NaN", np.isnan), ("+Inf", np.isposinf), ("-Inf", np.isneginf)):
+        np.testing.assert_array_equal(f(got), f(want), err_msg=f"{name}: {what} placement")
+    ok = np.isfinite(want)
+    scale = np.abs(np.where(ok, want, 0.0)).max(axis=1, keepdims=True)
+    tol = F32[name]["atol"] + F32[name]["rtol"] * scale
+    bad = ok & ~(np.abs(np.where(ok, got - want, 0.0)) <= tol)
+    assert not bad.any(), f"{name}: {np.argwhere(bad)[:5].tolist()} out of tolerance"
+
+
+def _check_fault_semantics(Ps, Ls, kff):
+    """What the faulty lanes of ``add_riccati_faults`` must show in any
+    correct version ([rows, e, B] numpy): the negative pivot poisons its
+    stage's last L entry and every factor before it, the NaN in c its
+    stage's kff and every one before, the Inf in qx[k+1] kff from stage k."""
+    k = riccati_fault_stage(kff.shape[0])
+    lane = NEG_RD_LANE
+    assert np.isnan(Ps[:k + 1, :, lane]).all() and np.isfinite(Ps[k + 1:, :, lane]).all()
+    assert np.isnan(Ls[k, -1, lane]) and np.isfinite(Ls[k, :-1, lane]).all()
+    assert np.isnan(Ls[:k, :, lane]).all() and np.isfinite(Ls[k + 1:, :, lane]).all()
+    assert np.isnan(kff[:k + 1, :, NAN_C_LANE]).all()
+    assert np.isfinite(kff[k + 1:, :, NAN_C_LANE]).all()
+    assert not np.isfinite(kff[k, :, INF_QX_LANE]).all()
+    assert np.isfinite(kff[k + 1:, :, INF_QX_LANE]).all()
+    clean = np.ones(kff.shape[-1], bool)
+    clean[[NEG_RD_LANE, NAN_C_LANE, INF_QX_LANE]] = False
+    assert np.isfinite(Ps[..., clean]).all() and np.isfinite(kff[..., clean]).all()
+
+
+@pytest.mark.parametrize("nx,nu", SHAPES)
+def test_nonfinite_lanes_match_pallas(nx, nu, monkeypatch):
+    """A lane with a non-positive Quu pivot, one with a NaN in c and one with
+    an Inf in qx (``add_riccati_faults``) through the plain versions and the
+    Pallas kernels (interpret mode), N=6, B=1024: NaN and Inf land in the
+    same places of Ps, Ks, Ls, dxs and dus, and the finite values agree."""
+    jax, jnp = _jax()
+    from nmpc_nav_control_tpu.ops.pallas_riccati import (
+        riccati_factor_batched,
+        riccati_solve_batched,
+    )
+
+    monkeypatch.setenv("NMPC_TPU_PALLAS_INTERPRET", "1")
+    N, B = 6, 1024
+    x = add_riccati_faults(random_riccati_inputs(nx, nu, N, B, seed=4))
+
+    def jx(v, *entry):
+        return jnp.asarray(np.moveaxis(v, -1, 0).reshape(B, v.shape[0], *entry))
+
+    def bm(v):
+        v = np.asarray(v)
+        return torch.from_numpy(np.ascontiguousarray(
+            np.moveaxis(v.reshape(B, v.shape[1], -1), 0, -1)))
+
+    A, Bj = jx(x["A"], nx, nx), jx(x["Bm"], nx, nu)
+    Ps, Ks, Ls = jax.jit(riccati_factor_batched)(A, Bj, jx(x["Qd"], nx), jx(x["Rd"], nu))
+    dxs, dus = jax.jit(riccati_solve_batched)(Ps, Ks, Ls, A, Bj, jx(x["qx"], nx),
+                                              jx(x["qu"], nu), jx(x["c"], nx),
+                                              jnp.asarray(x["dx0"].T))
+    t = _bm_torch(x)
+    f = rf.riccati_factor_fused(t["A"], t["Bm"], t["Qd"], t["Rd"])
+    _assert_same_nonfinite(f.Ps, bm(Ps), "Ps")
+    _assert_same_nonfinite(f.Ks, bm(Ks), "Ks")
+    _assert_same_nonfinite(rf.unpack_L(f.Ls, nu), bm(Ls), "Ls")
+
+    jPs, jKs, jLs = bm(Ps), bm(Ks), rf.pack_L(bm(Ls), nu)
+    kff = rf.riccati_solve_bwd_fused(t["A"], t["Bm"], jKs, jLs, jPs, t["qx"], t["qu"], t["c"])
+    got_x, got_u = rf.riccati_solve_fwd_fused(t["A"], t["Bm"], jKs, kff, t["c"], t["dx0"])
+    _assert_same_nonfinite(got_x, bm(dxs), "dxs")
+    _assert_same_nonfinite(got_u, bm(dus), "dus")
+    _check_fault_semantics(f.Ps.numpy(), f.Ls.numpy(), kff.numpy())
+
+
 def test_wrappers_route_by_device():
     """CPU tensors take the plain version; mixed devices never silently
     fall back, and a shape without a CUDA kernel is named."""
@@ -194,21 +284,26 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("lanes", [1, 1000, 2048])
+@pytest.mark.parametrize("horizon", [1, 13, 40])
+@pytest.mark.parametrize("lanes", [1, 17, 1000, 2048])
 @pytest.mark.parametrize("nx,nu", SHAPES)
-def test_cuda_riccati_kernels_match_plain(cuda_device, nx, nu, lanes):
-    t = {k: v.to(cuda_device) for k, v in
-         _bm_torch(random_riccati_inputs(nx, nu, 40, lanes, seed=lanes)).items()}
+def test_cuda_riccati_kernels_match_plain(cuda_device, nx, nu, lanes, horizon):
+    """Each kernel against its plain version on the card, with the faulty
+    lanes of ``add_riccati_faults`` where B holds them (NaN and Inf in the
+    same places); 13 and 1 stages end the kernels' chunks early."""
+    x = add_riccati_faults(random_riccati_inputs(nx, nu, horizon, lanes, seed=lanes))
+    t = {k: v.to(cuda_device) for k, v in _bm_torch(x).items()}
     ref = rf.factor_plain(t["A"], t["Bm"], t["Qd"], t["Rd"])
     got = rf.riccati_factor_fused(t["A"], t["Bm"], t["Qd"], t["Rd"])
     torch.cuda.synchronize()
     for name in ("Ps", "Ks", "Ls"):
         torch.testing.assert_close(getattr(got, name), getattr(ref, name), msg=name,
-                                   **F32[name])
+                                   equal_nan=True, **F32[name])
     args = (t["A"], t["Bm"], ref.Ks, ref.Ls, ref.Ps, t["qx"], t["qu"], t["c"])
     kff = rf.solve_bwd_plain(*args)
-    torch.testing.assert_close(rf.riccati_solve_bwd_fused(*args), kff, **F32["kff"])
+    torch.testing.assert_close(rf.riccati_solve_bwd_fused(*args), kff, equal_nan=True,
+                               **F32["kff"])
     args = (t["A"], t["Bm"], ref.Ks, kff, t["c"], t["dx0"])
     for name, g, r in zip(("dxs", "dus"), rf.riccati_solve_fwd_fused(*args),
                           rf.solve_fwd_plain(*args)):
-        torch.testing.assert_close(g, r, msg=name, **F32[name])
+        torch.testing.assert_close(g, r, msg=name, equal_nan=True, **F32[name])

@@ -69,3 +69,30 @@ def random_riccati_inputs(nx, nu, N, B, seed=0):
         qx=f32(rng.normal(size=(N + 1, nx, B))), qu=f32(rng.normal(size=(N, nu, B))),
         c=f32(rng.normal(size=(N, nx, B)) * 0.1), dx0=f32(rng.normal(size=(nx, B)) * 0.1),
     )
+
+
+# Lanes of the Riccati kernels' non-finite set, each where it exists (B=17
+# holds all three, B=1 none): a non-positive Quu pivot (a negative Rd), a NaN
+# in c, an Inf in qx.
+NEG_RD_LANE, NAN_C_LANE, INF_QX_LANE = 1, 9, 16
+
+
+def riccati_fault_stage(N):
+    """The stage the faults of ``add_riccati_faults`` sit at."""
+    return N // 2
+
+
+def add_riccati_faults(x):
+    """Put the three faults into a ``random_riccati_inputs`` set, in place, at
+    stage k = N // 2: Rd[k, nu-1] = -1e7 (so the last pivot of Quu_k is
+    negative and its square root NaN), c[k, 1] = NaN, qx[k+1, 2] = Inf.
+    Returns the set."""
+    N, B = x["Rd"].shape[0], x["Rd"].shape[-1]
+    k = riccati_fault_stage(N)
+    if NEG_RD_LANE < B:
+        x["Rd"][k, -1, NEG_RD_LANE] = -1e7
+    if NAN_C_LANE < B:
+        x["c"][k, 1, NAN_C_LANE] = np.nan
+    if INF_QX_LANE < B:
+        x["qx"][k + 1, 2, INF_QX_LANE] = np.inf
+    return x
