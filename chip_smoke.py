@@ -18,9 +18,16 @@ It imports nothing of JAX.  Phases, each printing one line per result:
      atol 1e-5; kernel and plain times at B=2048 from CUDA events, device
      times from the profiler at B=2048 and B=1;
   3. the main path: 20 chained batched ``controller_step`` ticks, diff N=40,
-     B=2048, 8 IPM iterations, f32, with the inputs of ``bench.py``; every
-     lane ``ok``, finite ``kkt_res``, and the launch counts exactly 8/8/8/8/1
-     per tick; ms per tick at B=2048 and at B=1 (CUDA events);
+     B=2048, 8 IPM iterations, f32, with the inputs of ``bench.py``, eager
+     and then through ``GraphedController`` (the tick captured in a CUDA
+     graph, 20 chained replays); every lane ``ok``, finite ``kkt_res``, the
+     graphed chain's last state and command within 3.6e-6 of the eager
+     chain's, the eager chain's launch counts exactly 20 x 8/8/8/8/1 and the
+     capture's exactly 8/8/8/8/1 (one tick; replays count nothing); ms per
+     tick eager and graphed at B=2048 and at
+     B=1 (CUDA events), the graphed B=1 tick under the 25 ms budget, and
+     the device time of a graphed tick and of the port's kernels in it
+     (profiler);
   4. card against CPU: 5 ticks at B=256 through the port on the card and on
      the CPU (plain sweeps), ``us`` within the f32 bounds of the golden suite
      (max 5e-3, mean 2e-4), with an f64 CPU run as referee;
@@ -34,16 +41,22 @@ It imports nothing of JAX.  Phases, each printing one line per result:
      where B holds them: NaN and Inf in the same places, the finite values
      within the f32 bounds of ``tests/test_pallas_riccati.py``; kernel and
      plain times at B=2048, device times at B=2048 and B=1;
-  7. the Riccati route (``NMPC_TPU_TILED_IPM=0``): 20 chained ticks of
-     ``bench.py``'s omni4 configuration at B=2048, every lane ``ok``, launch
-     counts exactly 8 / 16 / 16 Riccati kernels per tick and no IPM sweep;
-     ms per tick at B=2048 and B=1; the same at B=2048 for diff and tric;
-  8. omni4 and tric on the default route (the fused sweeps): launches
-     8/8/8/8/1 per tick and no Riccati kernel, ms per tick;
-  9. goldens on the card: ``diff_pose_N40``, ``omni4_pose_N40``,
-     ``tric_pose_N40`` and ``tric_bug_pose_N40`` through the Riccati route,
-     ``omni4_pose_N40`` and ``tric_pose_N40`` through the default route,
-     within the golden bounds.
+  7. the Riccati route (``NMPC_TPU_TILED_IPM=0``): phase 3's runs for
+     ``bench.py``'s omni4 configuration at B=2048 and B=1, launch counts
+     exactly 8 / 16 / 16 Riccati kernels a tick (eager and at capture) and
+     no IPM sweep; the same at B=2048 for diff and tric;
+  8. omni4 and tric on the default route (the fused sweeps), phase 3's run
+     at B=2048: launches 8/8/8/8/1 a tick (eager and at capture) and no
+     Riccati kernel;
+  9. goldens on the card, within the golden bounds: ``diff_pose_N40``,
+     ``omni4_pose_N40``, ``tric_pose_N40`` and ``tric_bug_pose_N40``
+     through the Riccati route and ``omni4_pose_N40`` and ``tric_pose_N40``
+     through the default route, eager (``controller_step``); the three N=80
+     goldens (``diff_pose_N80``, ``omni4_pose_N80``, ``tric_pose_N80``)
+     through both routes, graphed;
+ 10. f64 on the card: 5 ticks of the diff controller in f64 at B=256 on
+     each route take the plain versions on the card (no kernel launched)
+     and agree with the f64 CPU run within 1e-8.
 
 Any failure raises, and the script exits non-zero.  Before the last line it
 prints the kernels as one JSON object (each with its bound: the bytes it
@@ -74,6 +87,9 @@ RICCATI_PER_TICK = {"riccati_factor": 8, "riccati_solve_bwd": 16, "riccati_solve
 # Riccati kernel vs plain: the f32 bounds of tests/test_pallas_riccati.py.
 RICCATI_TOL = {"Ps": (5e-4, 1e-4), "Ks": (5e-5, 1e-4), "Ls": (5e-5, 1e-4),
                "kff": (5e-5, 1e-4), "dxs": (5e-5, 0.0), "dus": (5e-5, 0.0)}
+GRAPH_TOL = 3.6e-6               # graphed vs eager tick: the f32 batched-vs-serial bound
+F64_TOL = 1e-8                   # f64 card vs CPU (tests/test_torch_slice.py's f64 bound)
+BUDGET_MS = 25.0                 # the reference's 40 Hz tick
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
 
@@ -124,20 +140,50 @@ def _time_ms(torch, fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(torch, fn, reps=10):
-    """Device time per call from torch.profiler (CUPTI), for a call that
-    launches one kernel and nothing else on the card; None if the trace
-    shows no device time."""
+def _profile(torch, fn, reps):
+    """key_averages() of ``reps`` calls of ``fn`` under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages())
-    return total / reps / 1000.0 if total > 0 else None
+    return prof.key_averages()
+
+
+def _device_ms(torch, fn, reps=10, tries=3):
+    """Device time per call from torch.profiler (CUPTI), for a call that
+    launches one kernel and nothing else on the card.  A trace with no
+    device time is taken again, up to ``tries`` times, then it raises."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        total = sum(getattr(e, "self_device_time_total", 0.0) for e in _profile(torch, fn, reps))
+        if total > 0:
+            return total / reps / 1000.0
+    raise RuntimeError(f"the profiler showed no device time in {tries} traces")
+
+
+# The port's kernels as the profiler names them (csrc/*.cu, anonymous namespace).
+PORT_KERNEL = re.compile(r"namespace\)::(bwd_fused_kernel|fwd_kernel|bwd_corr_kernel|kkt_kernel|"
+                         r"factor_kernel|solve_bwd_kernel|solve_fwd_kernel)<")
+
+
+def _tick_breakdown(torch, fn, reps=5):
+    """(device ms of all kernels, of the port's kernels) per call of ``fn``
+    (one graphed tick) from torch.profiler; None where the trace shows no
+    device time."""
+    fn()
+    torch.cuda.synchronize()
+    total = port = 0.0
+    for e in _profile(torch, fn, reps):
+        t = getattr(e, "self_device_time_total", 0.0)
+        total += t
+        if PORT_KERNEL.search(e.key):
+            port += t
+    if total <= 0:
+        return None
+    return total / reps / 1000.0, port / reps / 1000.0
 
 
 def _ptxas_kernels(log):
@@ -372,7 +418,11 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
-    from nmpc_nav_control_tpu_torch.control import controller_init, controller_step
+    from nmpc_nav_control_tpu_torch.control import (
+        GraphedController,
+        controller_init,
+        controller_step,
+    )
     from nmpc_nav_control_tpu_torch.ops import _build
     from nmpc_nav_control_tpu_torch.ops import ipm_fused as tp
     from nmpc_nav_control_tpu_torch.ops import riccati_fused as rf
@@ -466,46 +516,98 @@ def main() -> int:
                                                      bound_ms=bound_ms, bound_by=bound_by)
 
     # ---- Phase 3: the main path, bench inputs, 20 chained ticks. ----
-    def run_ticks(spec, data, lanes, count):
+    # Eager ticks first, counted (TICKS ticks' launches), then the same
+    # chain through GraphedController: its capture is counted too (one
+    # tick's launches; replays count nothing), and its last state and
+    # command are held against the eager chain's.
+    def run_ticks(spec, data, lanes, what):
         inputs = _bench_inputs(torch, lanes, dev)
-        warm = controller_init(spec, lanes, torch.float32, dev)
-        controller_step(spec, data, warm, *inputs)       # first-call set-up
+        controller_step(spec, data, controller_init(spec, lanes, torch.float32, dev),
+                        *inputs)                          # first-call set-up
         state = controller_init(spec, lanes, torch.float32, dev)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-        if count:
-            _build.reset_launch_counts()
+        _build.reset_launch_counts()
         start.record()
-        stats_all = []
+        oks, kkts = [], []
         for _ in range(TICKS):
             state, cmd, stats = controller_step(spec, data, state, *inputs)
-            stats_all.append(stats)
+            oks.append(stats.ok)
+            kkts.append(stats.kkt_res)
         end.record()
         end.synchronize()
-        counts = _build.launch_counts() if count else None
-        ok = torch.stack([s.ok for s in stats_all])
-        kkt = torch.stack([s.kkt_res for s in stats_all])
+        eager_ms = start.elapsed_time(end) / TICKS
+        eager_counts = _build.launch_counts()
+        check_tick(oks, kkts, cmd, f"{what} eager")
+
+        graphed = GraphedController(spec, data, lanes)
+        graphed.load_inputs(*inputs)
+        counts = graphed.capture()
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        start.record()
+        oks, kkts = [], []
+        for _ in range(TICKS):
+            g_state, g_cmd, g_stats = graphed.step(*inputs)
+            oks.append(g_stats.ok.clone())
+            kkts.append(g_stats.kkt_res.clone())
+        end.record()
+        end.synchronize()
+        if _build.launch_counts():
+            raise AssertionError(f"{what}: replays launched {_build.launch_counts()}")
+        graphed_ms = start.elapsed_time(end) / TICKS
+        check_tick(oks, kkts, g_cmd, f"{what} graphed")
+        gap = max(float((g - e).abs().max()) for g, e in zip((*g_state, *g_cmd), (*state, *cmd)))
+        if not (gap <= GRAPH_TOL and torch.equal(g_stats.ok, stats.ok)):
+            raise AssertionError(f"{what}: graphed tick departs from the eager one by {gap:.3e}")
+        split = _tick_breakdown(torch, lambda: graphed.step(*inputs))
+        return dict(eager_ms=eager_ms, graphed_ms=graphed_ms, launches=counts,
+                    eager_launches=eager_counts,
+                    kkt_max=float(torch.stack(kkts).max()), graphed_vs_eager=gap,
+                    device_ms=None if split is None else split[0],
+                    kernel_ms=None if split is None else split[1])
+
+    def check_tick(oks, kkts, cmd, what):
+        ok, kkt = torch.stack(oks), torch.stack(kkts)
         if not bool(ok.all()) or not bool(torch.isfinite(kkt).all()):
-            raise AssertionError(f"B={lanes}: {int((~ok).sum())} lane-ticks not ok")
+            raise AssertionError(f"{what}: {int((~ok).sum())} lane-ticks not ok")
         if not bool(torch.isfinite(cmd.v).all() & torch.isfinite(cmd.w).all()):
-            raise AssertionError(f"B={lanes}: non-finite command")
-        return start.elapsed_time(end) / TICKS, counts, float(kkt[-1].max())
+            raise AssertionError(f"{what}: non-finite command")
 
-    def check_counts(counts, per_tick, what):
+    def report(phase, what, lanes, r, per_tick):
+        """Print a run_ticks result; raise unless the eager chain launched
+        exactly TICKS ticks' kernels and the capture exactly one tick's."""
+        print(f"phase {phase} {what} N=40 B={lanes} eager: {TICKS} chained ticks, all lanes "
+              f"ok, launches {r['eager_launches']}, {r['eager_ms']:.3f} ms/tick")
+        share = ("not measured" if r["device_ms"] is None else
+                 f"device {r['device_ms']:.3f} ms/tick (idle "
+                 f"{100 * (1 - r['device_ms'] / r['graphed_ms']):.1f}%), port kernels "
+                 f"{r['kernel_ms']:.3f} ms ({100 * r['kernel_ms'] / r['graphed_ms']:.1f}% of the tick)")
+        print(f"phase {phase} {what} N=40 B={lanes} graphed: {TICKS} chained replays, all lanes "
+              f"ok, max kkt_res {r['kkt_max']:.3e}, launches at capture {r['launches']}, "
+              f"{r['graphed_ms']:.3f} ms/tick, max |graphed - eager| {r['graphed_vs_eager']:.3e}; "
+              f"{share}")
+        if r["launches"] != per_tick:
+            raise AssertionError(f"phase {phase} {what} B={lanes}: launch counts at capture "
+                                 f"{r['launches']}, expected exactly {per_tick}")
         want = {k: v * TICKS for k, v in per_tick.items()}
-        if counts != want:
-            raise AssertionError(f"{what}: launch counts {counts}, expected exactly {want}")
+        if r["eager_launches"] != want:
+            raise AssertionError(f"phase {phase} {what} B={lanes}: eager launch counts "
+                                 f"{r['eager_launches']}, expected exactly {want}")
 
-    ms_2048, counts, kkt_max = run_ticks(spec, data, 2048, count=True)
-    print(f"phase 3 main path diff N=40 B=2048: {TICKS} ticks, all lanes ok, "
-          f"max kkt_res {kkt_max:.3e}, launches {counts}")
-    check_counts(counts, PER_TICK, "phase 3")
+    wide = run_ticks(spec, data, 2048, "phase 3")
+    report(3, "main path diff", 2048, wide, PER_TICK)
     for name in PER_TICK:
-        kernels[name]["launches"] = counts[name]
-    ms_1, _, _ = run_ticks(spec, data, 1, count=False)
-    print(f"phase 3 ms/tick: B=2048 {ms_2048:.3f} ms, B=1 {ms_1:.3f} ms")
-    record.update(ms_per_tick_B2048=ms_2048, ms_per_tick_B1=ms_1, launches=counts)
+        kernels[name]["launches"] = wide["launches"][name]
+    one = run_ticks(spec, data, 1, "phase 3")
+    report(3, "main path diff", 1, one, PER_TICK)
+    print(f"phase 3 ms/tick graphed (eager): B=2048 {wide['graphed_ms']:.3f} "
+          f"({wide['eager_ms']:.3f}) ms, B=1 {one['graphed_ms']:.3f} ({one['eager_ms']:.3f}) ms")
+    if not one["graphed_ms"] < BUDGET_MS:
+        raise AssertionError(f"phase 3: the graphed B=1 tick takes {one['graphed_ms']:.3f} ms, "
+                             f"not under the {BUDGET_MS} ms budget")
+    record.update(main_path={"2048": wide, "1": one})
 
     # ---- Phase 4: card against CPU, 5 ticks at B=256. ----
     # Two f32 runs of 8 IPM iterations differ by more than summation order
@@ -591,17 +693,13 @@ def main() -> int:
     record["riccati_route"] = {}
     for geometry in ("omni4", "diff", "tric"):
         spec_g, data_g = _controller(torch, dev, geometry=geometry)
-        ms_g, counts, kkt_max = run_ticks(spec_g, data_g, 2048, count=True)
-        print(f"phase 7 Riccati route {geometry} N=40 B=2048: {TICKS} ticks, all lanes ok, "
-              f"max kkt_res {kkt_max:.3e}, launches {counts}, {ms_g:.3f} ms/tick")
-        check_counts(counts, RICCATI_PER_TICK, f"phase 7 {geometry}")
-        entry = dict(ms_per_tick_B2048=ms_g, launches=counts)
+        entry = {"2048": run_ticks(spec_g, data_g, 2048, f"phase 7 {geometry}")}
+        report(7, f"Riccati route {geometry}", 2048, entry["2048"], RICCATI_PER_TICK)
         if geometry == "omni4":
             for name in RICCATI_PER_TICK:
-                kernels[name]["launches"] = counts[name]
-            entry["ms_per_tick_B1"], _, _ = run_ticks(spec_g, data_g, 1, count=False)
-            print(f"phase 7 Riccati route omni4 ms/tick: B=2048 {ms_g:.3f} ms, "
-                  f"B=1 {entry['ms_per_tick_B1']:.3f} ms")
+                kernels[name]["launches"] = entry["2048"]["launches"][name]
+            entry["1"] = run_ticks(spec_g, data_g, 1, "phase 7 omni4")
+            report(7, "Riccati route omni4", 1, entry["1"], RICCATI_PER_TICK)
         record["riccati_route"][geometry] = entry
 
     # ---- Phase 8: omni4 and tric on the default route. ----
@@ -609,29 +707,59 @@ def main() -> int:
     record["default_route"] = {}
     for geometry in ("omni4", "tric"):
         spec_g, data_g = _controller(torch, dev, geometry=geometry)
-        ms_g, counts, kkt_max = run_ticks(spec_g, data_g, 2048, count=True)
-        print(f"phase 8 default route {geometry} N=40 B=2048: {TICKS} ticks, all lanes ok, "
-              f"max kkt_res {kkt_max:.3e}, launches {counts}, {ms_g:.3f} ms/tick")
-        check_counts(counts, PER_TICK, f"phase 8 {geometry}")
-        record["default_route"][geometry] = dict(ms_per_tick_B2048=ms_g, launches=counts)
+        r = run_ticks(spec_g, data_g, 2048, f"phase 8 {geometry}")
+        report(8, f"default route {geometry}", 2048, r, PER_TICK)
+        record["default_route"][geometry] = r
     for name, v in record["ipm_omni4"].items():
         print(f"phase 8 omni4 {name} B=2048: kernel {v['ms']:.4f} ms per call "
               f"(device {v['device_ms']} ms), plain {v['plain_ms']:.4f} ms, "
               f"bound {v['bound_ms']:.4f} ms")
 
-    # ---- Phase 9: goldens on the card, both routes. ----
+    # ---- Phase 9: goldens on the card, both routes: N=40 eager, N=80 graphed. ----
     record["goldens"] = {}
-    for route, names in (("0", ("diff_pose_N40", "omni4_pose_N40", "tric_pose_N40",
-                                "tric_bug_pose_N40")),
-                         ("1", ("omni4_pose_N40", "tric_pose_N40"))):
+    n80 = ("diff_pose_N80", "omni4_pose_N80", "tric_pose_N80")
+    for route, n40 in (("0", ("diff_pose_N40", "omni4_pose_N40", "tric_pose_N40",
+                              "tric_bug_pose_N40")),
+                       ("1", ("omni4_pose_N40", "tric_pose_N40"))):
         _set_route(route)
-        for name in names:
-            err = torch_golden.track(name, torch.float32, dev)
-            label = "Riccati" if route == "0" else "default"
-            print(f"phase 9 golden {name} on the card, {label} route: {err}")
+        label = "Riccati" if route == "0" else "default"
+        for name, graphed in [(n, False) for n in n40] + [(n, True) for n in n80]:
+            err = torch_golden.track(name, torch.float32, dev, graphed=graphed)
+            how = "graphed" if graphed else "eager"
+            print(f"phase 9 golden {name} on the card, {label} route, {how}: {err}")
             if not torch_golden.within_tolerance(err):
-                raise AssertionError(f"golden {name} ({label} route) out of tolerance: {err}")
-            record["goldens"][f"{name}/{label}"] = err
+                raise AssertionError(f"golden {name} ({label} route, {how}) out of tolerance: "
+                                     f"{err}")
+            record["goldens"][f"{name}/{label}/{how}"] = err
+
+    # ---- Phase 10: f64 controllers on the card, both routes. ----
+    # f64 takes the plain versions on the card (qp.ipm.kernel_impl): no
+    # kernel may launch, and the run agrees with the f64 CPU run to rounding.
+    record["f64"] = {}
+    for route in ("1", "0"):
+        _set_route(route)
+        runs = {}
+        for where in ("card", "cpu"):
+            d = dev if where == "card" else "cpu"
+            spec_w, data_w = _controller(torch, d, torch.float64)
+            inputs = [t.double() if t.is_floating_point() else t
+                      for t in _bench_inputs(torch, 256, d)]
+            st = controller_init(spec_w, 256, torch.float64, d)
+            _build.reset_launch_counts()
+            for _ in range(5):
+                st, _, stats = controller_step(spec_w, data_w, st, *inputs)
+            counts = _build.launch_counts()
+            if counts or not bool(stats.ok.all()):
+                raise AssertionError(f"phase 10 f64 {where} route {route}: launches {counts}, "
+                                     f"{int((~stats.ok).sum())} lanes not ok")
+            runs[where] = st.us.cpu()
+        gap = float((runs["card"] - runs["cpu"]).abs().max())
+        label = "Riccati" if route == "0" else "default"
+        print(f"phase 10 f64 diff N=40 B=256 on the card, {label} route, 5 ticks: no kernel "
+              f"launched, max |us_card - us_cpu| {gap:.3e}")
+        if not gap <= F64_TOL:
+            raise AssertionError(f"phase 10: f64 card and CPU runs differ by {gap:.3e}")
+        record["f64"][label] = gap
     _set_route("1")
 
     elapsed = time.perf_counter() - t_start

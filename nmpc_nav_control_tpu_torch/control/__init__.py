@@ -6,10 +6,12 @@ from nmpc_nav_control_tpu_torch.control.controllers import (
     controller_step,
     make_controller,
 )
+from nmpc_nav_control_tpu_torch.control.graph import GraphedController
 
 __all__ = [
     "CmdVel",
     "ControllerSpec",
+    "GraphedController",
     "controller_init",
     "controller_reset",
     "controller_step",

@@ -25,6 +25,7 @@ from nmpc_nav_control_tpu_torch.rti.step import (
     rti_reset,
     rti_step,
 )
+from nmpc_nav_control_tpu_torch.utils.index import sel
 
 __all__ = [
     "CmdVel",
@@ -194,5 +195,5 @@ def controller_step(spec: ControllerSpec, data: OCPData, state: RTIState, pose, 
         steer_angle = torch.zeros_like(state.x0_carry[:, 0])
     x0 = _compose_x0(spec, data, state, pose, vel, steer_angle)
     new_state, u0, stats = rti_step(spec.rti, data, state, x0, traj_xy_theta, n_valid)
-    refs = x0[:, list(spec.dims.model.idxbx)] + u0 * spec.dims.dt
+    refs = x0[:, sel(spec.dims.model.idxbx, x0.device)] + u0 * spec.dims.dt
     return new_state, _cmd_of(spec, data, refs), stats

@@ -41,10 +41,15 @@
 //   the last chunk with kff = -(L L')^{-1} qu_bar from the qu_bar the chain
 //   left in the ring; so neither P nor L enters the chain.
 //
-//   solve_fwd_kernel (first form): one thread per lane, the stage loop inside
-//   the thread; each stage copies its operands into the thread's own slots
-//   of shared memory with cp.async (stride 32, so a warp's lanes hit 32
-//   banks) and pays one memory latency.
+//   solve_fwd_kernel: the shape of ipm_fused.cu's fwd_kernel without the
+//   bound-entry work.  A block owns 32 lanes at (7, 2) and 16 at (11, 4)
+//   and walks the horizon forward in chunks of S stages.  Warp 0 rolls a
+//   chunk out, one thread per lane, from a two-slot shared-memory ring
+//   (du = K dx + kff, then A dx + B du, then + c, the plain version's
+//   order) into a shared output tile; the fan-out threads copy the chunk
+//   after next into the ring with unrolled cp.async rows (copy_rows) and
+//   store the last chunk's dx and du from the tile, one thread per (stage,
+//   lane), so neither a load nor a store sits on the chain.
 //
 // Bound.  By the card's peaks each kernel is bound by the bytes it must move
 // (every input read once, every output written once), far below its flops.
@@ -52,9 +57,9 @@
 // of three parts, and every team thread reads all of P and A from shared
 // memory each stage (broadcast reads; 66 + 121 floats at nx = 11), so shared
 // memory's bandwidth and the chain bound it; P is kept as its lower triangle
-// for that.  solve_bwd's chain is short: its fan-out sets the pace, moving a
-// chunk's bytes at a time, and the first chunk overlaps nothing.  solve_fwd
-// pays one memory latency a stage per lane.
+// for that.  solve_bwd's and solve_fwd's chains are short: their fan-out
+// sets the pace, moving a chunk's bytes at a time, and the first chunk
+// overlaps nothing.
 //
 // Arithmetic is IEEE f32 (no --use_fast_math): a non-positive pivot gives NaN
 // through sqrtf and poisons the lane, which the IPM's per-lane rejection of
@@ -508,93 +513,152 @@ __global__ void __launch_bounds__(SolveBwdPlan<NX, NU>::THREADS)
 
 // --------------------------------------------------------------------------
 // Solve, forward half: du = K dx + kff, dx' = A dx + B du + c, from dx0;
-// writes dx_0..dx_N and du_0..du_{N-1}.  One thread per lane (first form).
+// writes dx_0..dx_N and du_0..du_{N-1}.
 // --------------------------------------------------------------------------
-
-constexpr int kThreads = 32;
-
-// One thread's slots in shared memory: entry e at p[e * kThreads].
-struct Slots {
-  float* p;
-  __device__ __forceinline__ float& operator[](int e) const { return p[e * kThreads]; }
-};
-
-// The thread's slots for an array that starts OFF floats into the block's
-// shared memory.
-template <int OFF>
-__device__ __forceinline__ Slots slots(float* smem) {
-  return Slots{smem + OFF * kThreads + threadIdx.x};
-}
-
-// Copy row k (E entries) of a batch-minor [rows, E, B] tensor into slots.
-template <int E>
-__device__ __forceinline__ void stage_row(Slots dst, const float* src, int k, int B, int b) {
-#pragma unroll
-  for (int e = 0; e < E; ++e) cp_async4(&dst[e], src + (static_cast<size_t>(k) * E + e) * B + b);
-}
 
 struct SolveFwdArgs {
   const float *A, *Bm, *Ks, *kff, *c, *dx0;
   float *dxs, *dus;
 };
 
+// Shared-memory plan of solve_fwd_kernel: TL lanes a block, chunks of S
+// stages.  The ring holds two chunks of A, B, K, kff and c as [S][E][TL]
+// (copied by cp.async); the rollout writes dx (S + 1 rows, the first being
+// the chunk's start) and du (S rows) of a chunk into one of two output
+// slots, from which the fan-out threads store them.  A block takes 32
+// lanes, so that each row it copies is one 128-byte line, where the ring
+// still holds 6 stages of them ((7, 2)), else kSweepLanes ((11, 4)): on the
+// card the wider block ran (7, 2) at B=2048 10% faster, and (11, 4), at 2
+// stages a chunk, slower.
 template <int NX, int NU>
-struct SolveFwdSlots {
-  static constexpr int A = 0, B = A + NX * NX, K = B + NX * NU, KFF = K + NU * NX, C = KFF + NU;
-  static constexpr int SIZE = C + NX;
-  static constexpr size_t SMEM = sizeof(float) * SIZE * kThreads;
-  static_assert(SMEM <= 48 * 1024, "a block past 48 KB of shared memory needs the opt-in");
+struct SolveFwdPlan {
+  static constexpr int OA = 0, OB = NX * NX, OK = OB + NX * NU, OKFF = OK + NU * NX,
+                       OC = OKFF + NU, E = OC + NX;
+  static constexpr int TL = kSweepRingBytes / (2 * E * 32 * 4) >= 6 ? 32 : kSweepLanes;
+  static constexpr int S_FIT = kSweepRingBytes / (2 * E * TL * 4);
+  static constexpr int S = S_FIT < 8 ? S_FIT : 8;
+  static_assert(S >= 1 && TL % 4 == 0 && TL <= 32, "ring too small for one stage");
+  static constexpr int NF = S * TL, THREADS = 32 + NF;  // warp 0 rolls out, NF fan out
+  static constexpr int RING = S * E * TL, DX = (S + 1) * NX * TL, DU = S * NU * TL;
+  static constexpr int SMEM = (2 * RING + 2 * (DX + DU)) * 4;
 };
 
 template <int NX, int NU>
-__global__ void __launch_bounds__(kThreads) solve_fwd_kernel(SolveFwdArgs a, int N, int B) {
-  using S = SolveFwdSlots<NX, NU>;
-  extern __shared__ float smem[];
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const Slots sA = slots<S::A>(smem), sB = slots<S::B>(smem), sK = slots<S::K>(smem);
-  const Slots skff = slots<S::KFF>(smem), sc = slots<S::C>(smem);
+__global__ void __launch_bounds__(SolveFwdPlan<NX, NU>::THREADS, 1)
+    solve_fwd_kernel(SolveFwdArgs a, int N, int B) {
+  using F = SolveFwdPlan<NX, NU>;
+  constexpr int TL = F::TL, SC = F::S;
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                // 2 x [SC][E][TL]
+  float* dxb = smem + 2 * F::RING;   // 2 x [SC + 1][NX][TL]
+  float* dub = dxb + 2 * F::DX;      // 2 x [SC][NU][TL]
+  const int tid = threadIdx.x, b0 = blockIdx.x * TL, nch = (N + SC - 1) / SC;
+  const bool roller = tid < 32;
+  const int f = tid - 32, fl = roller ? tid : f % TL, fs = roller ? 0 : f / TL;
+  const int b = b0 + fl;
+  const bool live = b < B && (!roller || tid < TL);
 
+  // The roller's carry.
   float dx[NX];
 #pragma unroll
-  for (int i = 0; i < NX; ++i) dx[i] = ld(a.dx0, 0, i, NX, B, b);
+  for (int i = 0; i < NX; ++i) dx[i] = live && roller ? ld(a.dx0, 0, i, NX, B, b) : 0.f;
 
-#pragma unroll 1
-  for (int k = 0; k < N; ++k) {
-    stage_row<NX * NX>(sA, a.A, k, B, b);
-    stage_row<NX * NU>(sB, a.Bm, k, B, b);
-    stage_row<NU * NX>(sK, a.Ks, k, B, b);
-    stage_row<NU>(skff, a.kff, k, B, b);
-    stage_row<NX>(sc, a.c, k, B, b);
+  // Fan-out threads copy chunk q's operands into ring slot q & 1.
+  auto copy_chunk = [&, a](int q) {
+    float* r = ring + (q & 1) * F::RING;
+    const int k0 = q * SC, sc = min(SC, N - k0);
+    copy_rows<F, NX * NX, F::OA>(r, a.A, k0, sc, b0, B, f);
+    copy_rows<F, NX * NU, F::OB>(r, a.Bm, k0, sc, b0, B, f);
+    copy_rows<F, NU * NX, F::OK>(r, a.Ks, k0, sc, b0, B, f);
+    copy_rows<F, NU, F::OKFF>(r, a.kff, k0, sc, b0, B, f);
+    copy_rows<F, NX, F::OC>(r, a.c, k0, sc, b0, B, f);
     cp_async_commit();
-    cp_async_wait<0>();
+  };
 
-    float du[NU], dxn[NX];
+  // Warp 0, one thread per lane: roll chunk q out into output slot q & 1,
+  // in the plain version's term order (du first, then A dx + B du, then c).
+  // A stage stores only at its end, so none of its ring loads waits behind
+  // a store it might alias: they issue together.
+  auto rollout = [&](int q) {
+    const float* r = ring + (q & 1) * F::RING + tid;
+    float* X = dxb + (q & 1) * F::DX + tid;
+    float* U = dub + (q & 1) * F::DU + tid;
+    const int sc = min(SC, N - q * SC);
 #pragma unroll
-    for (int u = 0; u < NU; ++u) {
-      float s = 0.f;
+    for (int i = 0; i < NX; ++i) X[i * TL] = dx[i];
+#pragma unroll 1
+    for (int s = 0; s < sc; ++s) {
+      const float* R = r + s * F::E * TL;
+      float du[NU], dxn[NX];
 #pragma unroll
-      for (int m = 0; m < NX; ++m) s += sK[u * NX + m] * dx[m];
-      du[u] = s + skff[u];
+      for (int u = 0; u < NU; ++u) {
+        float t = 0.f;
+#pragma unroll
+        for (int m = 0; m < NX; ++m) t += R[(F::OK + u * NX + m) * TL] * dx[m];
+        du[u] = t + R[(F::OKFF + u) * TL];
+      }
+#pragma unroll
+      for (int i = 0; i < NX; ++i) {
+        float t = 0.f, v = 0.f;
+#pragma unroll
+        for (int m = 0; m < NX; ++m) t += R[(F::OA + i * NX + m) * TL] * dx[m];
+#pragma unroll
+        for (int u = 0; u < NU; ++u) v += R[(F::OB + i * NU + u) * TL] * du[u];
+        dxn[i] = (t + v) + R[(F::OC + i) * TL];
+      }
+#pragma unroll
+      for (int u = 0; u < NU; ++u) U[(s * NU + u) * TL] = du[u];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) {
+        dx[i] = dxn[i];
+        X[((s + 1) * NX + i) * TL] = dxn[i];
+      }
     }
+  };
+
+  // Fan-out thread (fs, fl): store stage q SC + fs of chunk q (and dx_N
+  // after the last stage) from output slot q & 1.
+  auto store = [&, a](int q) {
+    const int k = q * SC + fs;
+    if (!live || k >= N) return;
+    const float* X = dxb + (q & 1) * F::DX + fl;
+    const float* U = dub + (q & 1) * F::DU + fl;
 #pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      float s = 0.f, r = 0.f;
+    for (int i = 0; i < NX; ++i) st(a.dxs, k, i, NX, B, b, X[(fs * NX + i) * TL]);
 #pragma unroll
-      for (int m = 0; m < NX; ++m) s += sA[i * NX + m] * dx[m];
+    for (int u = 0; u < NU; ++u) st(a.dus, k, u, NU, B, b, U[(fs * NU + u) * TL]);
+    if (k == N - 1) {
 #pragma unroll
-      for (int u = 0; u < NU; ++u) r += sB[i * NU + u] * du[u];
-      dxn[i] = (s + r) + sc[i];
+      for (int i = 0; i < NX; ++i) st(a.dxs, N, i, NX, B, b, X[((fs + 1) * NX + i) * TL]);
     }
-#pragma unroll
-    for (int i = 0; i < NX; ++i) st(a.dxs, k, i, NX, B, b, dx[i]);
-#pragma unroll
-    for (int u = 0; u < NU; ++u) st(a.dus, k, u, NU, B, b, du[u]);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) dx[i] = dxn[i];
+  };
+
+  // Chunk q rolls out while chunk q - 1 is stored and chunk q + 1 arrives;
+  // chunk q + 2 is copied into q's ring slot once q has rolled out.  Lanes
+  // at or past B roll out on whatever their ring entries hold and store
+  // nothing.
+  if (!roller) {
+    copy_chunk(0);
+    if (nch > 1) {
+      copy_chunk(1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
   }
-#pragma unroll
-  for (int i = 0; i < NX; ++i) st(a.dxs, N, i, NX, B, b, dx[i]);
+  __syncthreads();
+#pragma unroll 1
+  for (int q = 0; q < nch; ++q) {
+    if (roller) {
+      if (tid < TL) rollout(q);
+    } else {
+      if (q >= 1) store(q - 1);
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (!roller && q + 2 < nch) copy_chunk(q + 2);
+  }
+  if (!roller) store(nch - 1);
 }
 
 // --------------------------------------------------------------------------
@@ -639,9 +703,10 @@ int launch_solve_fwd(void* const* p, int n, int N, int B, cudaStream_t stream) {
                  static_cast<const float*>(p[2]), static_cast<const float*>(p[3]),
                  static_cast<const float*>(p[4]), static_cast<const float*>(p[5]),
                  static_cast<float*>(p[6]), static_cast<float*>(p[7])};
-  using S = SolveFwdSlots<NX, NU>;
-  solve_fwd_kernel<NX, NU><<<(B + kThreads - 1) / kThreads, kThreads, S::SMEM, stream>>>(
-      a, N, B);
+  using F = SolveFwdPlan<NX, NU>;
+  static const int attr = smem_attr(solve_fwd_kernel<NX, NU>, F::SMEM);
+  if (attr != 0) return attr;
+  solve_fwd_kernel<NX, NU><<<(B + F::TL - 1) / F::TL, F::THREADS, F::SMEM, stream>>>(a, N, B);
   return static_cast<int>(cudaGetLastError());
 }
 

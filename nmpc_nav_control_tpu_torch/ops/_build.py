@@ -15,8 +15,10 @@ and returns ``cudaGetLastError()`` after the launch.
 
 Each wrapper that launches a kernel adds one to that kernel's count in
 ``launch_counts()``, and nothing else touches the counts, so a run can show
-which kernels its main path went through.  ``on_cuda`` and ``check`` are the
-wrappers' shared routing and argument checks.
+which kernels its main path went through; a CUDA graph that captures a
+wrapper's launch counts it once, at capture, and not at each replay.
+``use_kernel`` and ``check`` are the wrappers' shared routing and argument
+checks.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ __all__ = [
     "launch_counts",
     "on_cuda",
     "reset_launch_counts",
+    "use_kernel",
 ]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -161,6 +164,18 @@ def on_cuda(tensors) -> bool:
     if dev.type == "cpu":
         return False
     raise ValueError(f"no kernel implementation for device {dev}")
+
+
+def use_kernel(tensors, impl: str) -> bool:
+    """True where a wrapper launches its kernel.  ``impl`` is the solve's
+    choice (``qp.ipm.kernel_impl``): "plain" takes the plain version on the
+    tensors' own device; "kernel" launches the kernel on CUDA tensors and
+    takes the plain version on CPU tensors, for which no kernel exists.
+    Mixed or other devices raise either way."""
+    cuda = on_cuda(tensors)
+    if impl not in ("kernel", "plain"):
+        raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+    return cuda and impl == "kernel"
 
 
 def check(named_shapes) -> None:

@@ -21,11 +21,14 @@ packed to their structural nonzeros (``pack_sparse``).  The four bound
 groups travel as 4-tuples ordered (x lower, x upper, u lower, u upper); x
 bounds at row k apply to stage k+1.
 
-Each wrapper routes by device: tensors on the CPU go to the plain torch
-version beside it, tensors on a CUDA device go to the hand-written kernel in
+Each wrapper routes by its ``impl`` argument and the device: with "kernel"
+(the default) tensors on the CPU go to the plain torch version beside it,
+tensors on a CUDA device go to the hand-written kernel in
 ``csrc/ipm_fused.cu`` (its header says how each kernel splits a lane's
-stages over threads), or the wrapper raises.  There is no fallback between
-the two.  The plain versions follow the TPU kernels' conventions so that
+stages over threads; f32 only), or the wrapper raises; "plain" runs the
+plain version on the tensors' own device, which is how the solve runs f64
+on the card (``qp.ipm.kernel_impl``).  There is no fallback between the
+two.  The plain versions follow the TPU kernels' conventions so that
 every output is comparable: the cost-to-go carry excludes the stage
 diagonal, which is added when consumed; backward sweeps read Qd/qx/dx at
 row k+1; the forward rollout starts from ``r_init = dx0 - dx[0]``; the
@@ -44,6 +47,7 @@ import torch
 
 from nmpc_nav_control_tpu_torch.ops import _build
 from nmpc_nav_control_tpu_torch.ops.linearize_packed import nz_positions
+from nmpc_nav_control_tpu_torch.utils.index import index_tensor, mask_tensor, sel
 
 __all__ = [
     "SweepConfig",
@@ -208,10 +212,10 @@ def _dense(packed, sp):
     """Packed [N, nnz, B] -> _Sparse of [N, B, n, m]."""
     n, m = len(sp), len(sp[0])
     N, _, B = packed.shape
+    dev = packed.device
     out = packed.new_zeros((N, n * m, B))
-    out[:, [i * m + j for i, j in nz_positions(sp)]] = packed
-    nz = torch.tensor(sp, dtype=torch.bool, device=packed.device)
-    return _Sparse(_bf(out).reshape(N, B, n, m), nz)
+    out.index_copy_(1, index_tensor(tuple(i * m + j for i, j in nz_positions(sp)), dev), packed)
+    return _Sparse(_bf(out).reshape(N, B, n, m), mask_tensor(sp, dev))
 
 
 def _mm(a, b):
@@ -277,7 +281,7 @@ def _grads(cfg, Qd, qx, dx, Rd, qu, du, le):
     """Stationarity gradients at consumption rows (batch-first):
     gx_{k+1} = Qd dx + qx + sel'(le_xu - le_xl), gu_k = Rd du + qu +
     sel'(le_uu - le_ul)."""
-    ibx, ibu = list(cfg.idxbx), list(cfg.idxbu)
+    ibx, ibu = sel(cfg.idxbx, dx.device), sel(cfg.idxbu, dx.device)
     gx = Qd[1:] * dx[1:] + qx[1:]
     gx[..., ibx] = gx[..., ibx] + (le[1] - le[0])
     gu = Rd * du + qu
@@ -305,19 +309,25 @@ def _vector_bwd(Ad, Bd, K, L, Pc, gx, gu):
     return -torch.stack(sol).squeeze(-1)
 
 
+def _tril(nu, device):
+    """(rows, columns) of the lower triangle, row-major, on ``device``."""
+    rc = [(i, j) for i in range(nu) for j in range(i + 1)]
+    return (index_tensor(tuple(i for i, _ in rc), device),
+            index_tensor(tuple(j for _, j in rc), device))
+
+
 def _unpack_L(L, nu):
     """[N, ntri, B] lower row-major -> [N, B, nu, nu]."""
     N, _, B = L.shape
     out = L.new_zeros((N, B, nu, nu))
-    r, c = torch.tril_indices(nu, nu)
+    r, c = _tril(nu, L.device)
     out[:, :, r, c] = _bf(L)
     return out
 
 
 def _pack_L(L):
     """[N, B, nu, nu] -> [N, ntri, B] lower row-major."""
-    nu = L.shape[-1]
-    r, c = torch.tril_indices(nu, nu)
+    r, c = _tril(L.shape[-1], L.device)
     return L[:, :, r, c].transpose(1, 2).contiguous()
 
 
@@ -334,7 +344,7 @@ def _to_bm(x):
 def bwd_fused_plain(cfg, A, Bm, Qd, Rd, qx, qu, c, dx, du, s, lam, bnd, *,
                     reg, d_cap) -> BwdFusedOut:
     """Plain version of ``ipm_bwd_fused`` (same arguments and outputs)."""
-    ibx, ibu = list(cfg.idxbx), list(cfg.idxbu)
+    ibx, ibu = sel(cfg.idxbx, A.device), sel(cfg.idxbu, A.device)
     Ad, Bd = _dense(A, cfg.asp), _dense(Bm, cfg.bsp)
     Qd, Rd, qx, qu, c, dx, du = map(_bf, (Qd, Rd, qx, qu, c, dx, du))
     s, lam, bnd = [tuple(map(_bf, g)) for g in (s, lam, bnd)]
@@ -395,7 +405,7 @@ def _rollout(Ad, Bd, K, kff, rdyn, r_init):
 
 def _fwd_plain(cfg, A, Bm, K, kff, rdyn, r_init, s, lam, rp, corr, sigma_mu,
                tau, mode):
-    ibx, ibu = list(cfg.idxbx), list(cfg.idxbu)
+    ibx, ibu = sel(cfg.idxbx, A.device), sel(cfg.idxbu, A.device)
     N = kff.shape[0]
     Ad, Bd = _dense(A, cfg.asp), _dense(Bm, cfg.bsp)
     Kd = _bf(K).reshape(N, -1, cfg.nu, cfg.nx)
@@ -488,7 +498,7 @@ def kkt_fused_plain(cfg, A, Bm, Qd, qx, dx, Rd, qu, du, lam, s) -> KKTOut:
 
 
 def ipm_bwd_fused(cfg: SweepConfig, A, Bm, Qd, Rd, qx, qu, c, dx, du, s, lam,
-                  bnd, *, reg: float, d_cap: float) -> BwdFusedOut:
+                  bnd, *, reg: float, d_cap: float, impl: str = "kernel") -> BwdFusedOut:
     """Fused backward sweep (replaces ``pallas_ipm.ipm_bwd_fused``).
 
     A [N,nnzA,B], Bm [N,nnzB,B], Qd/qx [N+1,nx,B], Rd/qu [N,nu,B],
@@ -496,7 +506,7 @@ def ipm_bwd_fused(cfg: SweepConfig, A, Bm, Qd, Rd, qx, qu, c, dx, du, s, lam,
     multipliers; bnd: (lbx, ubx, lbu, ubu), each [N, nb, B].
     """
     ins = (A, Bm, Qd, Rd, qx, qu, c, dx, du, *s, *lam, *bnd)
-    if not _build.on_cuda(ins):
+    if not _build.use_kernel(ins, impl):
         return bwd_fused_plain(cfg, A, Bm, Qd, Rd, qx, qu, c, dx, du, s, lam,
                                bnd, reg=reg, d_cap=d_cap)
     N, nx, B = c.shape
@@ -520,13 +530,13 @@ def ipm_bwd_fused(cfg: SweepConfig, A, Bm, Qd, Rd, qx, qu, c, dx, du, s, lam,
 
 
 def ipm_fwd_affine(cfg: SweepConfig, A, Bm, K, kff, rdyn, r_init, s, lam, rp,
-                   *, tau: float) -> FwdAffineOut:
+                   *, tau: float, impl: str = "kernel") -> FwdAffineOut:
     """Affine forward sweep (replaces ``pallas_ipm.ipm_fwd_affine``).
 
     K [N,nu*nx,B], kff [N,nu,B], rdyn [N,nx,B], r_init [nx,B] = dx0 - dx[0].
     """
     ins = (A, Bm, K, kff, rdyn, r_init, *s, *lam, *rp)
-    if not _build.on_cuda(ins):
+    if not _build.use_kernel(ins, impl):
         return fwd_affine_plain(cfg, A, Bm, K, kff, rdyn, r_init, s, lam, rp, tau=tau)
     N, nx, B = rdyn.shape
     _build.check(_fwd_shapes(cfg, N, B, A, Bm, K, kff, rdyn, r_init, s, lam, rp))
@@ -547,11 +557,11 @@ def _fwd_shapes(cfg, N, B, A, Bm, K, kff, rdyn, r_init, s, lam, rp):
 
 
 def ipm_bwd_corr(cfg: SweepConfig, A, Bm, K, L, Pc, Qd, qx, dx, Rd, qu, du,
-                 s, lam, rp, corr, sigma_mu):
+                 s, lam, rp, corr, sigma_mu, *, impl: str = "kernel"):
     """Corrector backward sweep (replaces ``pallas_ipm.ipm_bwd_corr``);
     sigma_mu [B].  Returns kff_c [N, nu, B]."""
     ins = (A, Bm, K, L, Pc, Qd, qx, dx, Rd, qu, du, *s, *lam, *rp, *corr, sigma_mu)
-    if not _build.on_cuda(ins):
+    if not _build.use_kernel(ins, impl):
         return bwd_corr_plain(cfg, A, Bm, K, L, Pc, Qd, qx, dx, Rd, qu, du,
                               s, lam, rp, corr, sigma_mu)
     N, _, B = K.shape
@@ -570,10 +580,10 @@ def ipm_bwd_corr(cfg: SweepConfig, A, Bm, K, L, Pc, Qd, qx, dx, Rd, qu, du,
 
 
 def ipm_fwd_corr(cfg: SweepConfig, A, Bm, K, kff, rdyn, r_init, s, lam, rp,
-                 corr, sigma_mu, *, tau: float) -> FwdCorrOut:
+                 corr, sigma_mu, *, tau: float, impl: str = "kernel") -> FwdCorrOut:
     """Corrector forward sweep (replaces ``pallas_ipm.ipm_fwd_corr``)."""
     ins = (A, Bm, K, kff, rdyn, r_init, *s, *lam, *rp, *corr, sigma_mu)
-    if not _build.on_cuda(ins):
+    if not _build.use_kernel(ins, impl):
         return fwd_corr_plain(cfg, A, Bm, K, kff, rdyn, r_init, s, lam, rp,
                               corr, sigma_mu, tau=tau)
     N, nx, B = rdyn.shape
@@ -591,10 +601,10 @@ def ipm_fwd_corr(cfg: SweepConfig, A, Bm, K, kff, rdyn, r_init, s, lam, rp,
 
 
 def ipm_kkt_fused(cfg: SweepConfig, A, Bm, Qd, qx, dx, Rd, qu, du, lam,
-                  s) -> KKTOut:
+                  s, *, impl: str = "kernel") -> KKTOut:
     """Post-solve KKT sweep (replaces ``pallas_ipm.ipm_kkt_fused``)."""
     ins = (A, Bm, Qd, qx, dx, Rd, qu, du, *lam, *s)
-    if not _build.on_cuda(ins):
+    if not _build.use_kernel(ins, impl):
         return kkt_fused_plain(cfg, A, Bm, Qd, qx, dx, Rd, qu, du, lam, s)
     N, nu, B = du.shape
     nx = cfg.nx

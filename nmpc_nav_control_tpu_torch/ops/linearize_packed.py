@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from nmpc_nav_control_tpu_torch.ocp.integrator import make_discrete_dynamics
+from nmpc_nav_control_tpu_torch.utils.index import index_tensor
 
 __all__ = ["linearize_packed", "nz_positions"]
 
@@ -59,8 +60,13 @@ def linearize_packed(f, dt, xs, us, p, asp, bsp):
     cols = F(xT[..., None] + seed[:nx], uT[..., None] + seed[nx:], pC).imag / h
     # cols[i, k, b, j] = d x_next_i / d z_j at stage k of lane b.
 
+    # The nonzeros are gathered by index tensors made once on the device,
+    # which a CUDA graph can replay (a list index copies from the host).
+    dev = xs.device
     nzA, nzB = nz_positions(asp), nz_positions(bsp)
-    A = cols[[i for i, _ in nzA], :, :, [j for _, j in nzA]]
-    Bm = cols[[i for i, _ in nzB], :, :, [nx + j for _, j in nzB]]
+    A = cols[index_tensor(tuple(i for i, _ in nzA), dev), :, :,
+             index_tensor(tuple(j for _, j in nzA), dev)]
+    Bm = cols[index_tensor(tuple(i for i, _ in nzB), dev), :, :,
+              index_tensor(tuple(nx + j for _, j in nzB), dev)]
     return (A.permute(1, 0, 2).contiguous(), Bm.permute(1, 0, 2).contiguous(),
             x_next.permute(1, 0, 2).contiguous())

@@ -15,11 +15,14 @@ Cholesky factors are packed lower triangles ``[N, nu(nu+1)/2, B]``.  Ps
 holds P_k at every row k = 0..N, and the forward half writes dx_N itself.
 The IPM transposes A and B to this layout once per solve.
 
-Each wrapper routes by device: CPU tensors go to the plain version beside
-it (the functions of ``qp/riccati.py`` moved to this layout), CUDA tensors
-to the hand-written kernel in ``csrc/riccati_fused.cu``, compiled for
-(nx, nu) = (7, 2) (diff, tric) and (11, 4) (omni4); another shape on the
-card raises.  There is no fallback between the two.
+Each wrapper routes by its ``impl`` argument and the device: "kernel" (the
+default) sends CPU tensors to the plain version beside it (the functions of
+``qp/riccati.py`` moved to this layout) and CUDA tensors to the
+hand-written kernel in ``csrc/riccati_fused.cu``, compiled for f32 at
+(nx, nu) = (7, 2) (diff, tric) and (11, 4) (omni4), where another shape or
+dtype raises; "plain" runs the plain version on the tensors' own device,
+which is how the solve runs f64 on the card (``qp.ipm.kernel_impl``).
+There is no fallback between the two.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import torch
 
 from nmpc_nav_control_tpu_torch.ops import _build
 from nmpc_nav_control_tpu_torch.qp import riccati as ref
+from nmpc_nav_control_tpu_torch.utils.index import index_tensor
 
 __all__ = [
     "KERNELS",
@@ -63,21 +67,20 @@ class RiccatiFactorsBM(NamedTuple):
     Ls: torch.Tensor   # [N, nu(nu+1)/2, B], lower row-major
 
 
-def _tril(nu):
-    r, c = torch.tril_indices(nu, nu)
-    return (r * nu + c).tolist()
+def _tril(nu, device):
+    """Row-major positions of the lower triangle in a dense nu x nu row."""
+    return index_tensor(tuple(i * nu + j for i in range(nu) for j in range(i + 1)), device)
 
 
 def pack_L(L, nu):
     """Dense [N, nu*nu, B] -> packed lower triangles [N, nu(nu+1)/2, B]."""
-    return L[:, _tril(nu)].contiguous()
+    return L.index_select(1, _tril(nu, L.device))
 
 
 def unpack_L(L, nu):
     """Packed [N, nu(nu+1)/2, B] -> dense [N, nu*nu, B], zeros above."""
     out = L.new_zeros((L.shape[0], nu * nu, L.shape[2]))
-    out[:, _tril(nu)] = L
-    return out
+    return out.index_copy_(1, _tril(nu, L.device), L)
 
 
 def from_bm(x, *entry):
@@ -142,14 +145,15 @@ def solve_fwd_plain(A, Bm, Ks, kff, c, dx0):
 # --------------------------------------------------------------------------- #
 
 
-def riccati_factor_fused(A, Bm, Qd, Rd, *, reg: float = 0.0) -> RiccatiFactorsBM:
+def riccati_factor_fused(A, Bm, Qd, Rd, *, reg: float = 0.0,
+                         impl: str = "kernel") -> RiccatiFactorsBM:
     """Backward Riccati factorization (replaces
     ``pallas_riccati.riccati_factor_batched``).
 
     A [N, nx*nx, B], Bm [N, nx*nu, B], Qd [N+1, nx, B], Rd [N, nu, B].
     """
     ins = (A, Bm, Qd, Rd)
-    if not _build.on_cuda(ins):
+    if not _build.use_kernel(ins, impl):
         return factor_plain(A, Bm, Qd, Rd, reg=reg)
     nx, nu = _dims(A, Bm)
     N, _, B = A.shape
@@ -162,7 +166,7 @@ def riccati_factor_fused(A, Bm, Qd, Rd, *, reg: float = 0.0) -> RiccatiFactorsBM
     return out
 
 
-def riccati_solve_bwd_fused(A, Bm, Ks, Ls, Ps, qx, qu, c):
+def riccati_solve_bwd_fused(A, Bm, Ks, Ls, Ps, qx, qu, c, *, impl: str = "kernel"):
     """Backward half of the Riccati solve (replaces the backward kernel of
     ``pallas_riccati.riccati_solve_batched``).
 
@@ -170,7 +174,7 @@ def riccati_solve_bwd_fused(A, Bm, Ks, Ls, Ps, qx, qu, c):
     c [N, nx, B].  Returns kff [N, nu, B].
     """
     ins = (A, Bm, Ks, Ls, Ps, qx, qu, c)
-    if not _build.on_cuda(ins):
+    if not _build.use_kernel(ins, impl):
         return solve_bwd_plain(*ins)
     nx, nu = _dims(A, Bm)
     N, _, B = A.shape
@@ -184,7 +188,7 @@ def riccati_solve_bwd_fused(A, Bm, Ks, Ls, Ps, qx, qu, c):
     return kff
 
 
-def riccati_solve_fwd_fused(A, Bm, Ks, kff, c, dx0):
+def riccati_solve_fwd_fused(A, Bm, Ks, kff, c, dx0, *, impl: str = "kernel"):
     """Forward half of the Riccati solve (replaces the forward kernel of
     ``pallas_riccati.riccati_solve_batched``).
 
@@ -192,7 +196,7 @@ def riccati_solve_fwd_fused(A, Bm, Ks, kff, c, dx0):
     dus [N, nu, B]).
     """
     ins = (A, Bm, Ks, kff, c, dx0)
-    if not _build.on_cuda(ins):
+    if not _build.use_kernel(ins, impl):
         return solve_fwd_plain(*ins)
     nx, nu = _dims(A, Bm)
     N, _, B = A.shape

@@ -27,7 +27,9 @@ route it has already read, as ``rti_step`` does so that its linearization
 pattern and its solve follow one reading.  The JAX package's other
 conditions (a TPU, whole 1024-lane tiles reached by edge padding) have no
 counterpart: either solve takes any batch size, B=1 included, with no
-padding.
+padding.  It also chooses, once per solve, between the CUDA kernels and
+their plain versions (``kernel_impl``): f32 on the card takes the kernels,
+f64 anywhere and every CPU solve the plain versions.
 """
 from __future__ import annotations
 
@@ -37,8 +39,10 @@ from typing import NamedTuple
 import torch
 
 from nmpc_nav_control_tpu_torch.ops import riccati_fused as rf
+from nmpc_nav_control_tpu_torch.utils.index import sel
 
-__all__ = ["BoxQP", "IPMSolution", "solve_box_qp", "solve_box_qp_serial", "tiled_ipm_ok"]
+__all__ = ["BoxQP", "IPMSolution", "kernel_impl", "solve_box_qp", "solve_box_qp_serial",
+           "tiled_ipm_ok"]
 
 
 class BoxQP(NamedTuple):
@@ -101,6 +105,17 @@ def tiled_ipm_ok() -> bool:
     return os.environ.get("NMPC_TPU_TILED_IPM", "1") == "1"
 
 
+def kernel_impl(dtype, device) -> str:
+    """The kernels or their plain versions for a solve, on either route:
+    "kernel" for f32 on a CUDA device, "plain" otherwise, on the tensors'
+    own device.  The rule mirrors the JAX package's, which admits only f32
+    to its Pallas kernels (``ops/pallas_riccati.py::supported``) and sends
+    f64 to XLA on any device; no kernel takes f64.  Chosen once per solve."""
+    if dtype == torch.float32 and torch.device(device).type == "cuda":
+        return "kernel"
+    return "plain"
+
+
 def solve_box_qp(qp: BoxQP, idxbx, idxbu, iters: int = 12, tau: float = 0.995,
                  mu0: float = 1.0, s_min: float = 0.3, reg: float = 1e-8,
                  mu_min: float | None = None, spars=None, packed_abc=None,
@@ -114,18 +129,22 @@ def solve_box_qp(qp: BoxQP, idxbx, idxbu, iters: int = 12, tau: float = 0.995,
     None means dense.  The Riccati solve ignores it.  ``packed_abc``:
     optional batch-minor (A, Bm, c) already packed for the route (to
     ``spars`` for the fused sweeps, dense for the Riccati solve); ``qp.A/B/c``
-    are then ignored.  Returns an ``IPMSolution`` with leading batch axes.
+    are then ignored.  The kernels run where ``kernel_impl`` says (f32 on
+    the card), the plain versions elsewhere.  Returns an ``IPMSolution``
+    with leading batch axes.
     """
     if tiled is None:
         tiled = tiled_ipm_ok()
+    impl = kernel_impl(qp.Qd.dtype, qp.Qd.device)
     if tiled:
         from nmpc_nav_control_tpu_torch.qp.ipm_batched import solve_box_qp_batched
 
         return solve_box_qp_batched(qp, idxbx, idxbu, iters=iters, tau=tau, mu0=mu0,
                                     s_min=s_min, reg=reg, mu_min=mu_min, spars=spars,
-                                    packed_abc=packed_abc)
+                                    packed_abc=packed_abc, impl=impl)
     return solve_box_qp_serial(qp, idxbx, idxbu, iters=iters, tau=tau, mu0=mu0,
-                               s_min=s_min, reg=reg, mu_min=mu_min, packed_abc=packed_abc)
+                               s_min=s_min, reg=reg, mu_min=mu_min, packed_abc=packed_abc,
+                               impl=impl)
 
 
 def _per_lane_finite(x):
@@ -135,7 +154,8 @@ def _per_lane_finite(x):
 
 def solve_box_qp_serial(qp: BoxQP, idxbx, idxbu, iters: int = 12, tau: float = 0.995,
                         mu0: float = 1.0, s_min: float = 0.3, reg: float = 1e-8,
-                        mu_min: float | None = None, packed_abc=None) -> IPMSolution:
+                        mu_min: float | None = None, packed_abc=None,
+                        impl: str = "kernel") -> IPMSolution:
     """The Riccati-based solve of the JAX package's serial path, batched.
 
     ``qp`` leaves carry a leading batch axis [B, ...].  ``packed_abc``:
@@ -143,10 +163,11 @@ def solve_box_qp_serial(qp: BoxQP, idxbx, idxbu, iters: int = 12, tau: float = 0
     batch-minor layout (``ops.linearize_packed`` with the dense pattern
     writes exactly this); ``qp.A/B/c`` are then ignored.  Every per-stage
     tensor stays batch-minor [rows, e, B] for the whole solve, so A and B
-    are transposed at most once.
+    are transposed at most once.  ``impl`` goes to the Riccati wrappers
+    (``ops.riccati_fused``).
     """
-    ibx, ibu = [int(i) for i in idxbx], [int(i) for i in idxbu]
     B, Np1, nx = qp.Qd.shape
+    ibx, ibu = sel(idxbx, qp.Qd.device), sel(idxbu, qp.Qd.device)
     N, nu = Np1 - 1, qp.Rd.shape[-1]
     dtype = qp.Qd.dtype
     mu_min_d, eps_floor, d_cap = _guards(dtype)
@@ -159,7 +180,7 @@ def solve_box_qp_serial(qp: BoxQP, idxbx, idxbu, iters: int = 12, tau: float = 0
     Qd, qx, Rd, qu = map(rf.to_bm, (qp.Qd, qp.qx, qp.Rd, qp.qu))
     lbx, ubx, lbu, ubu = map(rf.to_bm, (qp.lbx, qp.ubx, qp.lbu, qp.ubu))
     dx0 = qp.dx0.mT.contiguous()                                  # [nx, B]
-    n_con = 2 * N * (len(ibx) + len(ibu))
+    n_con = 2 * N * (len(idxbx) + len(idxbu))
 
     def gaps(dxs, dus):
         zx, zu = dxs[1:, ibx], dus[:, ibu]
@@ -193,7 +214,7 @@ def solve_box_qp_serial(qp: BoxQP, idxbx, idxbu, iters: int = 12, tau: float = 0
         Qbar[1:, ibx] += torch.clamp(lam[0] / s[0] + lam[1] / s[1], max=d_cap)
         Rbar = Rd + reg
         Rbar[:, ibu] += torch.clamp(lam[2] / s[2] + lam[3] / s[3], max=d_cap)
-        fac = rf.riccati_factor_fused(A, Bm, Qbar, Rbar)
+        fac = rf.riccati_factor_fused(A, Bm, Qbar, Rbar, impl=impl)
 
         r_dyn = (torch.einsum("kijb,kjb->kib", A4, it.dxs[:-1])
                  + torch.einsum("kijb,kjb->kib", B4, it.dus) + c - it.dxs[1:]).contiguous()
@@ -211,8 +232,9 @@ def solve_box_qp_serial(qp: BoxQP, idxbx, idxbu, iters: int = 12, tau: float = 0
             gx[1:, ibx] += le[1] - le[0]
             gu = Rd * it.dus + qu
             gu[:, ibu] += le[3] - le[2]
-            kff = rf.riccati_solve_bwd_fused(A, Bm, fac.Ks, fac.Ls, fac.Ps, gx, gu, r_dyn)
-            ddxs, ddus = rf.riccati_solve_fwd_fused(A, Bm, fac.Ks, kff, r_dyn, r_init)
+            kff = rf.riccati_solve_bwd_fused(A, Bm, fac.Ks, fac.Ls, fac.Ps, gx, gu, r_dyn,
+                                             impl=impl)
+            ddxs, ddus = rf.riccati_solve_fwd_fused(A, Bm, fac.Ks, kff, r_dyn, r_init, impl=impl)
             dzx, dzu = ddxs[1:, ibx], ddus[:, ibu]
             ds = (rp[0] + dzx, rp[1] - dzx, rp[2] + dzu, rp[3] - dzu)
             dl = (-(lam[0] / s[0]) * dzx + le[0] - lam[0],

@@ -33,6 +33,7 @@ from nmpc_nav_control_tpu_torch.ops.ipm_fused import (
     pack_sparse,
 )
 from nmpc_nav_control_tpu_torch.qp.ipm import BoxQP, IPMSolution, _guards, _Iterate
+from nmpc_nav_control_tpu_torch.utils.index import sel, static_index
 
 __all__ = ["solve_box_qp_batched"]
 
@@ -51,15 +52,16 @@ def solve_box_qp_batched(qp: BoxQP, idxbx, idxbu, iters: int = 12,
                          tau: float = 0.995, mu0: float = 1.0,
                          s_min: float = 0.3, reg: float = 1e-8,
                          mu_min: float | None = None, spars=None,
-                         packed_abc=None) -> IPMSolution:
+                         packed_abc=None, impl: str = "kernel") -> IPMSolution:
     """Batched solve; ``qp`` leaves carry a leading batch axis [B, ...].
 
     ``packed_abc``: optional (A [N, nnzA, B], Bm [N, nnzB, B], c [N, nx, B])
     already packed to ``spars`` in the batch-minor layout, e.g. from
     ``ops.linearize_packed.linearize_packed``; ``qp.A/B/c`` are then ignored
-    (may be None) and the dense Jacobians never exist.
+    (may be None) and the dense Jacobians never exist.  ``impl`` goes to
+    the sweep wrappers (``ops.ipm_fused``).
     """
-    idxbx, idxbu = tuple(int(i) for i in idxbx), tuple(int(i) for i in idxbu)
+    idxbx, idxbu = static_index(idxbx), static_index(idxbu)
     B, Np1, nx = qp.Qd.shape
     N, nu = Np1 - 1, qp.Rd.shape[-1]
     nbx, nbu = len(idxbx), len(idxbu)
@@ -82,7 +84,7 @@ def solve_box_qp_batched(qp: BoxQP, idxbx, idxbu, iters: int = 12,
     # ---- Initial iterate: zero deltas, slacks at the gaps (>= s_min). ----
     dxs = torch.zeros((N + 1, nx, B), dtype=dtype, device=Qd.device)
     dus = torch.zeros((N, nu, B), dtype=dtype, device=Qd.device)
-    zx, zu = dxs[1:, list(idxbx)], dus[:, list(idxbu)]
+    zx, zu = dxs[1:, sel(idxbx, Qd.device)], dus[:, sel(idxbu, Qd.device)]
     gaps = (zx - bnd[0], bnd[1] - zx, zu - bnd[2], bnd[3] - zu)
     s = tuple(torch.clamp(g, min=s_min) for g in gaps)
     lam = tuple(torch.clamp(mu0 / s_, min=s_min) for s_ in s)
@@ -90,12 +92,12 @@ def solve_box_qp_batched(qp: BoxQP, idxbx, idxbu, iters: int = 12,
 
     for _ in range(iters):
         it = _ipm_iter(cfg, it, A, Bm, c, Qd, qx, Rd, qu, dx0, bnd, n_con,
-                       tau, reg, d_cap, eps_floor, mu_min)
+                       tau, reg, d_cap, eps_floor, mu_min, impl)
 
     # ---- KKT + complementarity on the final iterate, then untranspose. ----
     lam = (it.l_xl, it.l_xu, it.l_ul, it.l_uu)
     kkt = ipm_kkt_fused(cfg, A, Bm, Qd, qx, it.dxs, Rd, qu, it.dus, lam,
-                        (it.s_xl, it.s_xu, it.s_ul, it.s_uu))
+                        (it.s_xl, it.s_xu, it.s_ul, it.s_uu), impl=impl)
     return IPMSolution(
         dxs=_from_bm(it.dxs), dus=_from_bm(it.dus),
         lam_xl=_from_bm(it.l_xl), lam_xu=_from_bm(it.l_xu),
@@ -105,19 +107,19 @@ def solve_box_qp_batched(qp: BoxQP, idxbx, idxbu, iters: int = 12,
 
 
 def _ipm_iter(cfg, it, A, Bm, c, Qd, qx, Rd, qu, dx0, bnd, n_con, tau, reg,
-              d_cap, eps_floor, mu_min):
+              d_cap, eps_floor, mu_min, impl):
     s = (it.s_xl, it.s_xu, it.s_ul, it.s_uu)
     lam = (it.l_xl, it.l_xu, it.l_ul, it.l_uu)
 
     # --- Sweep 1: factor + residuals + affine backward + mu. ---
     bwd = ipm_bwd_fused(cfg, A, Bm, Qd, Rd, qx, qu, c, it.dxs, it.dus, s, lam,
-                        bnd, reg=reg, d_cap=d_cap)
+                        bnd, reg=reg, d_cap=d_cap, impl=impl)
     mu = bwd.musum / n_con
     r_init = dx0 - it.dxs[0]
 
     # --- Sweep 2: affine forward (corrector products + mu_aff coeffs). ---
     aff = ipm_fwd_affine(cfg, A, Bm, bwd.K, bwd.kff, bwd.rdyn, r_init, s, lam,
-                         bwd.rp, tau=tau)
+                         bwd.rp, tau=tau, impl=impl)
     a_aff = aff.alpha
     mu_aff = (bwd.musum + a_aff * aff.c12[0] + a_aff * a_aff * aff.c12[1]) / n_con
     sigma = torch.clamp((mu_aff / torch.clamp(mu, min=1e-16)) ** 3, 0.0, 1.0)
@@ -129,11 +131,11 @@ def _ipm_iter(cfg, it, A, Bm, c, Qd, qx, Rd, qu, dx0, bnd, n_con, tau, reg,
 
     # --- Sweep 3: corrector backward. ---
     kff_c = ipm_bwd_corr(cfg, A, Bm, bwd.K, bwd.L, bwd.Pc, Qd, qx, it.dxs, Rd,
-                         qu, it.dus, s, lam, bwd.rp, corr, sigma_mu)
+                         qu, it.dus, s, lam, bwd.rp, corr, sigma_mu, impl=impl)
 
     # --- Sweep 4: corrector forward (deltas + alpha + finiteness). ---
     fc = ipm_fwd_corr(cfg, A, Bm, bwd.K, kff_c, bwd.rdyn, r_init, s, lam,
-                      bwd.rp, corr, sigma_mu, tau=tau)
+                      bwd.rp, corr, sigma_mu, tau=tau, impl=impl)
     alpha = fc.alpha
     ddxs = torch.cat([fc.ddx, fc.ddx_N[None]], 0)
     new = _Iterate(

@@ -37,6 +37,7 @@ from nmpc_nav_control_tpu_torch.ops.ipm_fused import dense_sparsity
 from nmpc_nav_control_tpu_torch.ops.linearize_packed import linearize_packed
 from nmpc_nav_control_tpu_torch.qp.ipm import BoxQP, solve_box_qp, tiled_ipm_ok
 from nmpc_nav_control_tpu_torch.utils.angles import unwrap_angle
+from nmpc_nav_control_tpu_torch.utils.index import sel
 
 __all__ = ["RTIConfig", "RTIState", "RTIStats", "build_yref", "rti_init",
            "rti_reset", "rti_step"]
@@ -129,7 +130,7 @@ def rti_step(config: RTIConfig, data: OCPData, state: RTIState, x0, traj_xy_thet
     N, dt = dims.N, dims.dt
     nx, nu = model.nx, model.nu
     B = x0.shape[0]
-    ibx, ibu = list(model.idxbx), list(model.idxbu)
+    ibx, ibu = sel(model.idxbx, x0.device), sel(model.idxbu, x0.device)
     data = _batched(data, B)
 
     yref = build_yref(N, x0[:, 2], traj_xy_theta, n_valid)

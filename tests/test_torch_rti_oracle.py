@@ -8,7 +8,9 @@ bounds ``tests/test_rti_oracle.py`` holds the JAX production path to:
 golden on the Riccati route (``NMPC_TPU_TILED_IPM=0``), of which
 ``omni4_pose_N40`` and ``tric_bug_pose_N40`` are in the fast tier and the
 rest, the N=80 ones among them, are marked slow as in that file.
-``chip_smoke.py`` runs replays on the card.
+``gpu``: the three N=80 goldens on the card through the graphed tick, on
+both routes (skip without a card).  ``chip_smoke.py`` runs replays on the
+card.
 """
 import pytest
 import torch
@@ -35,4 +37,17 @@ def test_port_f32_tracks_diff_pose_N40_golden():
 def test_port_f32_riccati_route_tracks_golden(name, monkeypatch):
     monkeypatch.setenv("NMPC_TPU_TILED_IPM", "0")
     err = torch_golden.track(name, torch.float32, "cpu")
+    assert torch_golden.within_tolerance(err), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["1", "0"])
+@pytest.mark.parametrize("name", ["diff_pose_N80", "omni4_pose_N80", "tric_pose_N80"])
+def test_port_tracks_N80_goldens_on_the_card(name, route, monkeypatch):
+    """The N=80 goldens on the card, each tick a replay of the graphed
+    controller, on both routes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the graphed tick has no CPU mode")
+    monkeypatch.setenv("NMPC_TPU_TILED_IPM", route)
+    err = torch_golden.track(name, torch.float32, "cuda", graphed=True)
     assert torch_golden.within_tolerance(err), err

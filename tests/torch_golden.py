@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from nmpc_nav_control_tpu_torch.control import (
+    GraphedController,
     controller_init,
     controller_step,
     make_controller,
@@ -54,18 +55,23 @@ def make_port_controller(sc: Scenario, dtype=torch.float32, device="cpu"):
         dalpha_max=sc.ubu[1], tric_bug_compat=(sc.geometry == "tric_bug"), **kw)
 
 
-def port_step_fn(sc: Scenario, dtype=torch.float32, device="cpu"):
-    """``closed_loop`` step function backed by the port."""
+def port_step_fn(sc: Scenario, dtype=torch.float32, device="cpu", graphed=False):
+    """``closed_loop`` step function backed by the port; ``graphed`` runs
+    each tick as a replay of ``GraphedController`` (a CUDA device only)."""
     spec, data = make_port_controller(sc, dtype, device)
     holder = {"state": controller_init(spec, 1, dtype, device)}
+    if graphed:
+        tick = GraphedController(spec, data, 1).step
+    else:
+        def tick(*args, steer_angle):
+            return controller_step(spec, data, holder["state"], *args, steer_angle=steer_angle)
 
     def lane(x):
         return torch.as_tensor(np.asarray(x, float)[None], dtype=dtype, device=device)
 
     def step_fn(pose, vel, steer, traj, n_valid):
-        state, cmd, stats = controller_step(
-            spec, data, holder["state"], lane(pose), lane(vel), lane(traj),
-            torch.tensor([n_valid], device=device), steer_angle=lane(steer))
+        state, cmd, stats = tick(lane(pose), lane(vel), lane(traj),
+                                 torch.tensor([n_valid], device=device), steer_angle=lane(steer))
         holder["state"] = state
         return (state.us[0, 0].double().cpu().numpy(),
                 torch.stack([cmd.v, cmd.vn, cmd.w], -1)[0].double().cpu().numpy())
@@ -73,10 +79,10 @@ def port_step_fn(sc: Scenario, dtype=torch.float32, device="cpu"):
     return step_fn
 
 
-def track(name, dtype=torch.float32, device="cpu"):
+def track(name, dtype=torch.float32, device="cpu", graphed=False):
     """Max/mean |u - u_gold|, final pose divergence and max |cmd - cmd_gold|."""
     sc, gold = load(name)
-    run = closed_loop(sc, step_fn=port_step_fn(sc, dtype, device))
+    run = closed_loop(sc, step_fn=port_step_fn(sc, dtype, device, graphed))
     du = np.abs(run["us"] - gold["us"])
     return dict(
         u_max=float(du.max()), u_mean=float(du.mean()),
