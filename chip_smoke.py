@@ -56,7 +56,26 @@ It imports nothing of JAX.  Phases, each printing one line per result:
      through both routes, graphed;
  10. f64 on the card: 5 ticks of the diff controller in f64 at B=256 on
      each route take the plain versions on the card (no kernel launched)
-     and agree with the f64 CPU run within 1e-8.
+     and agree with the f64 CPU run within 1e-8;
+ 11. the navigation tick (``control.state_machine.node_tick``: projection,
+     windowing, the chord-table resampler, safety and termination lanes and
+     the solve) at ``bench.py::_measure_fleet``'s configuration: diff, N=40,
+     ``NavConfig()``, a 50 m line at 0.5 m/s, every robot at the origin,
+     f32, default route; 20 chained eager ticks and 20 chained replays of
+     ``GraphedNavigator`` at B=2048 and B=1, 5 of each for omni4 and tric
+     at B=2048: every lane FOLLOW_PATH with ``solve_ok`` and a finite
+     ``kkt_res`` at every tick, the graphed chain's last state and outputs
+     equal to the eager chain's bit for bit, the capture's launches exactly
+     one controller tick's (8/8/8/8/1) and the eager chain's 20 (5) times
+     that; ms per tick graphed (eager), ticks per second, the device time
+     and the kernels' share of a graphed tick, the graphed node tick minus
+     phase 3's graphed controller tick (the path subsystem's cost), and the
+     graphed B=1 tick under the 25 ms budget; then one robot through
+     ``runtime.NmpcNavControlNode`` on the card (graphed) and on the CPU in
+     lock step, fed one numpy plant driven by the card's commands, on the
+     two-line path of ``tests/test_state_machine.py``: it reaches IDLE with
+     no ERROR, the CPU node shows the same status at every tick, and the
+     largest command gap between them is printed.
 
 Any failure raises, and the script exits non-zero.  Before the last line it
 prints the kernels as one JSON object (each with its bound: the bytes it
@@ -88,6 +107,7 @@ RICCATI_PER_TICK = {"riccati_factor": 8, "riccati_solve_bwd": 16, "riccati_solve
 RICCATI_TOL = {"Ps": (5e-4, 1e-4), "Ks": (5e-5, 1e-4), "Ls": (5e-5, 1e-4),
                "kff": (5e-5, 1e-4), "dxs": (5e-5, 0.0), "dus": (5e-5, 0.0)}
 GRAPH_TOL = 3.6e-6               # graphed vs eager tick: the f32 batched-vs-serial bound
+NAV_TICKS_SHORT = 5              # phase 11's omni4 and tric chains
 F64_TOL = 1e-8                   # f64 card vs CPU (tests/test_torch_slice.py's f64 bound)
 BUDGET_MS = 25.0                 # the reference's 40 Hz tick
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
@@ -408,6 +428,201 @@ def _time_pair(torch, kern, plain, device_time=True):
     t = [_time_ms(torch, f) for f in (plain, kern, kern, plain)]
     dev_ms = _device_ms(torch, kern) if device_time else None
     return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, dev_ms
+
+
+def _fleet_state(torch, sm, spec, cfg, lanes, dev):
+    """``bench.py::_measure_fleet``'s lanes: one 50 m line at 0.5 m/s, set
+    on every lane as a path set (request 1), and every robot at the origin,
+    measurements valid."""
+    from nmpc_nav_control_tpu_torch.paths import PathSegment, make_line_segment
+
+    seg = make_line_segment((0.0, 0.0), (50.0, 0.0), velocity=0.5, device=dev)
+    segs = PathSegment(*(
+        torch.cat([x[None], torch.zeros((cfg.path_capacity - 1,) + x.shape, dtype=x.dtype,
+                                        device=dev)])[None].expand(lanes, *((-1,) * (x.dim() + 1)))
+        for x in seg))
+    state = sm.on_path_set(sm.node_init(spec, cfg, lanes, torch.float32, dev), cfg, segs, 1, 1)
+    flag = torch.ones(lanes, dtype=torch.bool, device=dev)
+    zeros = torch.zeros(lanes, 3, device=dev)
+    return state, sm.Measurements(zeros, zeros.clone(), zeros[:, 0].clone(), flag, flag, flag)
+
+
+def _nav_ticks(torch, geometry, lanes, ticks, dev):
+    """Eager chain, then the graphed chain, of ``node_tick`` at the fleet
+    configuration; raises unless every lane stays FOLLOW_PATH with
+    ``solve_ok`` and a finite ``kkt_res``, the graphed chain ends equal to
+    the eager one bit for bit, the capture launched one controller tick's
+    kernels and the eager chain ``ticks`` times that, and replays launch
+    nothing."""
+    from nmpc_nav_control_tpu_torch.control import GraphedNavigator
+    from nmpc_nav_control_tpu_torch.control import state_machine as sm
+    from nmpc_nav_control_tpu_torch.ops import _build
+
+    what = f"phase 11 {geometry} B={lanes}"
+    spec, data = _controller(torch, dev, geometry=geometry)
+    cfg = sm.NavConfig()
+    state0, meas = _fleet_state(torch, sm, spec, cfg, lanes, dev)
+    sm.node_tick(spec, data, cfg, state0, meas)                 # first-call set-up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def check(states, outs, how):
+        status = torch.stack([s.status for s in states])
+        ok = torch.stack([o.solve_ok for o in outs])
+        kkt = torch.stack([o.kkt_res for o in outs])
+        if not bool((status == sm.FOLLOW_PATH).all()):
+            raise AssertionError(f"{what} {how}: lanes left FOLLOW_PATH: "
+                                 f"{sorted(set(status.flatten().tolist()))}")
+        if not bool(ok.all()) or not bool(torch.isfinite(kkt).all()):
+            raise AssertionError(f"{what} {how}: {int((~ok).sum())} lane-ticks not solve_ok")
+        return float(kkt.max())
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    state, states, outs = state0, [], []
+    start.record()
+    for _ in range(ticks):
+        state, out = sm.node_tick(spec, data, cfg, state, meas)
+        states.append(state)
+        outs.append(out)
+    end.record()
+    end.synchronize()
+    eager_ms = start.elapsed_time(end) / ticks
+    eager_counts = _build.launch_counts()
+    check(states, outs, "eager")
+
+    nav = GraphedNavigator(spec, data, cfg, lanes)
+    nav.load_state(state0)
+    nav.load_measurements(meas)
+    counts = nav.capture()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    g_states, g_outs = [], []
+    start.record()
+    for _ in range(ticks):
+        g_state, g_out = nav.step()
+        g_states.append(g_state._replace(status=g_state.status.clone()))
+        g_outs.append(g_out._replace(solve_ok=g_out.solve_ok.clone(),
+                                     kkt_res=g_out.kkt_res.clone()))
+    end.record()
+    end.synchronize()
+    if _build.launch_counts():
+        raise AssertionError(f"{what}: replays launched {_build.launch_counts()}")
+    graphed_ms = start.elapsed_time(end) / ticks
+    kkt_max = check(g_states, g_outs, "graphed")
+    got, want = _leaves((nav.state, g_out)), _leaves((state, out))
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    gap = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+    if not same:
+        raise AssertionError(f"{what}: graphed chain departs from the eager one by {gap:.3e}")
+    if counts != PER_TICK or eager_counts != {k: v * ticks for k, v in PER_TICK.items()}:
+        raise AssertionError(f"{what}: launches at capture {counts}, eager {eager_counts}; "
+                             f"expected {PER_TICK} a tick")
+    split = _tick_breakdown(torch, nav.step)
+    r = dict(eager_ms=eager_ms, graphed_ms=graphed_ms, launches=counts, kkt_max=kkt_max,
+             device_ms=None if split is None else split[0],
+             kernel_ms=None if split is None else split[1])
+    share = ("device not measured" if split is None else
+             f"device {split[0]:.3f} ms/tick (idle {100 * (1 - split[0] / graphed_ms):.1f}%), "
+             f"port kernels {split[1]:.3f} ms ({100 * split[1] / graphed_ms:.1f}% of the tick)")
+    print(f"{what}: {ticks} chained ticks, every lane FOLLOW_PATH and solve_ok, max kkt_res "
+          f"{kkt_max:.3e}, launches at capture {counts}, eager {ticks} x one tick; "
+          f"{graphed_ms:.3f} ms/tick graphed ({eager_ms:.3f} eager), "
+          f"{lanes / graphed_ms * 1e3:.0f} ticks/s graphed, graphed = eager bit for bit; {share}")
+    return r
+
+
+def _nav_node_run(torch, dev):
+    """One robot through ``runtime.NmpcNavControlNode`` on the card (its tick
+    a ``GraphedNavigator`` replay at B=1) and on the CPU in lock step: one
+    numpy plant (the diff RK4 plant of ``tests/test_state_machine.py``),
+    driven by the card node's commands, feeds both the same measurements.
+    Raises on an ERROR, on a status the two nodes disagree on, or if the
+    card node never reaches IDLE."""
+    import math
+
+    from nmpc_nav_control_tpu_torch.runtime import (
+        NmpcNavControlNode,
+        ParametricPath,
+        ParametricPathSet2,
+        from_dict,
+    )
+
+    raw = dict(steering_geometry="diff", control_freq=40, tf_ini=1.0, rob_dist_between_wh=0.27,
+               rob_wh_vel_time_const=0.1, rob_wh_max_vel=1.0, rob_wh_max_ace=2.0,
+               cost_matrix_weights_state_diag=[10.0, 10.0, 5.0, 0, 0, 0, 0],
+               cost_matrix_weights_input_diag=[1.0, 1.0], final_position_error=0.03,
+               final_orientation_error=3.0)
+    msg = ParametricPathSet2(paths=[ParametricPath("map", [0.0, 1.0], [0.0, 0.0], 0.5),
+                                    ParametricPath("map", [1.0, 1.0], [0.0, 0.0], 0.5)],
+                             request_id=1)
+    nodes = {where: NmpcNavControlNode(from_dict(raw), device=d)
+             for where, d in (("card", dev), ("cpu", "cpu"))}
+    for node in nodes.values():
+        node.on_path_no_stack_up_2(msg)
+
+    def f(x, u):
+        vb = 0.5 * (x[3] + x[4])
+        return np.array([vb * math.cos(x[2]), vb * math.sin(x[2]), (x[4] - x[3]) / 0.27,
+                         (u[0] - x[3]) / 0.1, (u[1] - x[4]) / 0.1])
+
+    x, dt, gap, statuses = np.zeros(5), 1.0 / 40.0, 0.0, []
+    for k in range(1200):
+        meas = (tuple(x[:3]), ((x[3] + x[4]) / 2, 0.0, (x[4] - x[3]) / 0.27))
+        (tw, st), (tw_cpu, st_cpu) = (n.tick(*meas) for n in nodes.values())
+        if st.status != st_cpu.status or (tw is None) != (tw_cpu is None):
+            raise AssertionError(f"phase 11 node tick {k}: card {st} {tw}, "
+                                 f"CPU {st_cpu} {tw_cpu}")
+        if st.status == 2:
+            raise AssertionError(f"phase 11 node tick {k}: ERROR")
+        statuses.append(st.status)
+        if tw is not None:
+            gap = max(gap, abs(tw.linear_x - tw_cpu.linear_x),
+                      abs(tw.angular_z - tw_cpu.angular_z))
+        if st.status == 0:
+            break
+        u = (tw.linear_x - 0.135 * tw.angular_z, tw.linear_x + 0.135 * tw.angular_z)
+        k1 = f(x, u)
+        k2 = f(x + dt / 2 * k1, u)
+        k3 = f(x + dt / 2 * k2, u)
+        x = x + dt / 6 * (k1 + 2 * k2 + 2 * k3 + f(x + dt * k3, u))
+    if statuses[-1] != 0:
+        raise AssertionError("phase 11 node: the robot never reached IDLE")
+    stats, cpu = nodes["card"].timing_stats(), nodes["cpu"].timing_stats()
+    print(f"phase 11 node, diff N=40, two-line path on the card (graphed) and the CPU in lock "
+          f"step: IDLE after {len(statuses)} ticks, no ERROR, the same status at every tick, end "
+          f"pose ({x[0]:.4f}, {x[1]:.4f}), max |cmd_card - cmd_cpu| {gap:.3e}; card node "
+          f"tick p50 {stats['p50_ms']:.3f} ms, p99 {stats['p99_ms']:.3f} ms, max "
+          f"{stats['max_ms']:.3f} ms (host clock, budget 25 ms; the first tick captures), CPU "
+          f"node tick p50 {cpu['p50_ms']:.3f} ms")
+    return dict(ticks=len(statuses), end_pose=x[:3].tolist(), max_cmd_gap=gap,
+                card_tick_ms=stats, cpu_tick_ms=cpu)
+
+
+def _phase_nav(torch, dev, controller_ms):
+    """Phase 11; ``controller_ms`` holds phase 3's graphed controller ticks
+    by B."""
+    out = {}
+    for geometry, lanes, ticks in (("diff", 2048, TICKS), ("diff", 1, TICKS),
+                                   ("omni4", 2048, NAV_TICKS_SHORT),
+                                   ("tric", 2048, NAV_TICKS_SHORT)):
+        t0 = time.perf_counter()
+        out[f"{geometry}/{lanes}"] = r = _nav_ticks(torch, geometry, lanes, ticks, dev)
+        r["seconds"] = time.perf_counter() - t0
+        if geometry == "diff":
+            r["path_ms"] = r["graphed_ms"] - controller_ms[str(lanes)]
+            print(f"phase 11 diff B={lanes}: graphed node tick {r['graphed_ms']:.3f} ms - graphed "
+                  f"controller tick {controller_ms[str(lanes)]:.3f} ms (phase 3) = "
+                  f"{r['path_ms']:.3f} ms of path subsystem")
+    one = out["diff/1"]["graphed_ms"]
+    if not one < BUDGET_MS:
+        raise AssertionError(f"phase 11: the graphed B=1 node tick takes {one:.3f} ms, not under "
+                             f"the {BUDGET_MS} ms budget")
+    t0 = time.perf_counter()
+    out["node"] = _nav_node_run(torch, dev)
+    out["node"]["seconds"] = time.perf_counter() - t0
+    print("phase 11 seconds: " + ", ".join(f"{k} {v['seconds']:.1f}" for k, v in out.items()))
+    return out
 
 
 def main() -> int:
@@ -761,6 +976,11 @@ def main() -> int:
             raise AssertionError(f"phase 10: f64 card and CPU runs differ by {gap:.3e}")
         record["f64"][label] = gap
     _set_route("1")
+
+    # ---- Phase 11: the navigation tick, fleet and single robot. ----
+    t_nav = time.perf_counter()
+    record["nav"] = _phase_nav(torch, dev, {"2048": wide["graphed_ms"], "1": one["graphed_ms"]})
+    print(f"phase 11: {time.perf_counter() - t_nav:.1f} s")
 
     elapsed = time.perf_counter() - t_start
     print(f"chip_smoke: all phases passed in {elapsed:.1f} s")

@@ -8,10 +8,15 @@ functions on tensors with an explicit leading batch axis where JAX used
 ``vmap``, NamedTuples and frozen dataclasses where JAX used pytrees, and an
 explicit ``device=`` argument.
 
-This slice runs the batched diff-drive ``controller_step``: batched RK4
-linearization in torch, then the Mehrotra box-IPM whose five sweeps run as
-CUDA kernels on a CUDA tensor and as their plain torch versions on a CPU
-tensor (``ops/ipm_fused.py``).
+What runs: the batched ``controller_step`` for the diff, omni4 and tric
+robots (RK4 linearization in torch, then the Mehrotra box-IPM on either
+route: the five fused IPM sweeps or the Riccati solve, as CUDA kernels on
+f32 CUDA tensors and as their plain torch versions otherwise), replayed as
+a CUDA graph by ``control.GraphedController``; the path subsystem
+(``paths/``) and the navigation state machine's batched ``node_tick``
+(``control/state_machine.py``), replayed by ``control.GraphedNavigator``;
+and the single-robot host node ``runtime.NmpcNavControlNode`` with its
+config, messages and telemetry.
 
 The package never imports JAX.
 """

@@ -6,12 +6,13 @@ from nmpc_nav_control_tpu_torch.control.controllers import (
     controller_step,
     make_controller,
 )
-from nmpc_nav_control_tpu_torch.control.graph import GraphedController
+from nmpc_nav_control_tpu_torch.control.graph import GraphedController, GraphedNavigator
 
 __all__ = [
     "CmdVel",
     "ControllerSpec",
     "GraphedController",
+    "GraphedNavigator",
     "controller_init",
     "controller_reset",
     "controller_step",

@@ -18,14 +18,24 @@ graph also freezes its route, so the object holds one capture and the
 a step reads another.  ``data`` is read by address: change it in place
 (``copy_``) or build a new object.
 
+``GraphedNavigator`` does the same for the navigation tick
+(``control/state_machine.py::node_tick``), the counterpart of the jitted
+``node_tick`` of ``nmpc_nav_control_tpu/runtime/node.py:96`` and
+``bench.py:254-262``: static ``Measurements`` and ``NodeState`` buffers,
+the new state copied back inside the graph, and the event functions
+(``on_goal_pose``, ``on_path_set``, ``on_command``, ``reset``) run eagerly
+between replays and copied into the static state.  Both classes share one
+capture routine (``_GraphedTick``).
+
 Launch counts (``ops._build.launch_counts``) grow at the warm-up ticks and
 at the capture, one tick's launches, and not at replays.  Without a CUDA
-device the class raises; it never runs eagerly in its place.
+device the classes raise; they never run eagerly in their place.
 """
 from __future__ import annotations
 
 import torch
 
+from nmpc_nav_control_tpu_torch.control import state_machine as sm
 from nmpc_nav_control_tpu_torch.control.controllers import (
     ControllerSpec,
     controller_init,
@@ -36,14 +46,68 @@ from nmpc_nav_control_tpu_torch.ocp.spec import OCPData
 from nmpc_nav_control_tpu_torch.ops import _build
 from nmpc_nav_control_tpu_torch.qp.ipm import tiled_ipm_ok
 
-__all__ = ["GraphedController"]
+__all__ = ["GraphedController", "GraphedNavigator"]
 
 # Eager ticks before a capture: they build the kernels, set each launcher's
 # shared-memory opt-in and fill the index caches outside the capture.
 WARMUP_TICKS = 2
 
 
-class GraphedController:
+class _GraphedTick:
+    """One tick captured in a CUDA graph over static buffers.
+
+    A subclass sets ``self.state`` (a NamedTuple of static tensors, nested
+    ones too) and ``_tick()``, which reads the static buffers and returns
+    ``(new_state, outputs)``.  ``capture`` takes the tick on the current
+    route; ``_replay`` replays it, capturing first where there is no capture
+    for the route ``NMPC_TPU_TILED_IPM`` now reads, and returns the static
+    outputs.
+    """
+
+    _capture = None           # (route, graph, outputs)
+
+    @staticmethod
+    def _check_device(data: OCPData, what: str):
+        device = data.p.device
+        if device.type != "cuda" or not torch.cuda.is_available():
+            raise RuntimeError(f"{what} needs data on a CUDA device, got {device}")
+        return data.p.dtype, device
+
+    def _tick(self):
+        raise NotImplementedError
+
+    def capture(self) -> dict:
+        """Capture the tick on the loaded inputs for the current route,
+        replacing the capture held.  ``WARMUP_TICKS`` eager ticks on a side
+        stream come first, their results dropped (the state buffers are not
+        written).  Returns the kernel launches made while capturing: one
+        tick's."""
+        route = tiled_ipm_ok()
+        device = self.data.p.device
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            for _ in range(WARMUP_TICKS):
+                self._tick()
+        torch.cuda.current_stream(device).wait_stream(stream)
+        before = _build.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            new_state, outputs = self._tick()
+            _copy_into(self.state, new_state)
+        self._capture = (route, graph, outputs)
+        return {k: n - before.get(k, 0) for k, n in _build.launch_counts().items()
+                if n != before.get(k, 0)}
+
+    def _replay(self):
+        if self._capture is None or self._capture[0] != tiled_ipm_ok():
+            self.capture()
+        _, graph, outputs = self._capture
+        graph.replay()
+        return outputs
+
+
+class GraphedController(_GraphedTick):
     """A batch of controllers whose tick replays a captured CUDA graph.
 
     ``step`` copies the inputs into the static buffers, replays the tick
@@ -54,9 +118,7 @@ class GraphedController:
     """
 
     def __init__(self, spec: ControllerSpec, data: OCPData, batch: int):
-        dtype, device = data.p.dtype, data.p.device
-        if device.type != "cuda" or not torch.cuda.is_available():
-            raise RuntimeError(f"GraphedController needs data on a CUDA device, got {device}")
+        dtype, device = self._check_device(data, "GraphedController")
         self.spec, self.data = spec, data
         self.state = controller_init(spec, batch, dtype, device)
         N = spec.dims.N
@@ -66,7 +128,6 @@ class GraphedController:
 
         self._inputs = (zeros(batch, 3), zeros(batch, 3), zeros(batch, N + 1, 3),
                         zeros(batch, dtype=torch.long), zeros(batch))
-        self._capture = None      # (route, graph, cmd, stats)
 
     def load_inputs(self, pose, vel, traj_xy_theta, n_valid, steer_angle=None) -> None:
         """Copy one tick's inputs into the static buffers (shapes as for
@@ -79,38 +140,13 @@ class GraphedController:
             _copy_into((steer_b,), (steer_angle,))
 
     def _tick(self):
-        return controller_step(self.spec, self.data, self.state, *self._inputs)
-
-    def capture(self) -> dict:
-        """Capture the tick on the loaded inputs for the current route,
-        replacing the capture held.  ``WARMUP_TICKS`` eager ticks on a side
-        stream come first, their results dropped (the state buffers are not
-        written).  Returns the kernel launches made while capturing: one
-        tick's."""
-        route = tiled_ipm_ok()
-        device = self.state.xs.device
-        stream = torch.cuda.Stream(device)
-        stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream):
-            for _ in range(WARMUP_TICKS):
-                self._tick()
-        torch.cuda.current_stream(device).wait_stream(stream)
-        before = _build.launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            new_state, cmd, stats = self._tick()
-            _copy_into(self.state, new_state)
-        self._capture = (route, graph, cmd, stats)
-        return {k: n - before.get(k, 0) for k, n in _build.launch_counts().items()
-                if n != before.get(k, 0)}
+        new_state, cmd, stats = controller_step(self.spec, self.data, self.state, *self._inputs)
+        return new_state, (cmd, stats)
 
     def step(self, pose, vel, traj_xy_theta, n_valid, steer_angle=None):
         """One tick for every lane: (state, CmdVel, RTIStats), static."""
         self.load_inputs(pose, vel, traj_xy_theta, n_valid, steer_angle)
-        if self._capture is None or self._capture[0] != tiled_ipm_ok():
-            self.capture()
-        _, graph, cmd, stats = self._capture
-        graph.replay()
+        cmd, stats = self._replay()
         return self.state, cmd, stats
 
     def reset(self) -> None:
@@ -118,8 +154,69 @@ class GraphedController:
         _copy_into(self.state, controller_reset(self.state))
 
 
+class GraphedNavigator(_GraphedTick):
+    """A batch of navigation nodes whose ``node_tick`` replays a captured
+    CUDA graph (the fleet tick of ``bench.py::_measure_fleet`` and the
+    single-robot node's tick).
+
+    ``step(meas)`` copies the measurements into the static buffers, replays
+    the tick and returns ``(state, TickOutput)``, both static buffers that
+    the next replay overwrites.  The event methods act on every lane, as
+    ``control.state_machine``'s event functions do, eagerly between replays.
+    """
+
+    def __init__(self, spec: ControllerSpec, data: OCPData, cfg: sm.NavConfig, batch: int):
+        dtype, device = self._check_device(data, "GraphedNavigator")
+        self.spec, self.data, self.cfg = spec, data, cfg
+        self.state = sm.node_init(spec, cfg, batch, dtype, device)
+
+        def zeros(*shape, dtype=dtype):
+            return torch.zeros((batch,) + shape, dtype=dtype, device=device)
+
+        true = torch.ones(batch, dtype=torch.bool, device=device)
+        self.meas = sm.Measurements(pose=zeros(3), vel=zeros(3), steer_angle=zeros(),
+                                    pose_valid=true, vel_valid=true.clone(),
+                                    steer_valid=true.clone())
+
+    def load_measurements(self, meas: sm.Measurements) -> None:
+        """Copy measurements (any device) into the static buffers."""
+        _copy_into(self.meas, meas)
+
+    def load_state(self, state: sm.NodeState) -> None:
+        """Copy a NodeState (any device) into the static state."""
+        _copy_into(self.state, state)
+
+    def _tick(self):
+        return sm.node_tick(self.spec, self.data, self.cfg, self.state, self.meas)
+
+    def step(self, meas: sm.Measurements | None = None):
+        """One tick for every lane on ``meas`` (None: the loaded ones):
+        (NodeState, TickOutput), static."""
+        if meas is not None:
+            self.load_measurements(meas)
+        return self.state, self._replay()
+
+    def on_goal_pose(self, goal_pose) -> None:
+        self.load_state(sm.on_goal_pose(self.state, goal_pose))
+
+    def on_path_set(self, new_segs, n_new, request_id=0) -> None:
+        self.load_state(sm.on_path_set(self.state, self.cfg, new_segs, n_new, request_id))
+
+    def on_command(self, command: str) -> None:
+        self.load_state(sm.on_command(self.state, command))
+
+    def reset(self) -> None:
+        """Every lane back to an idle node with an empty window."""
+        self.load_state(sm.node_init(self.spec, self.cfg, self.state.status.shape[0],
+                                     self.state.goal_pose.dtype, self.state.goal_pose.device))
+
+
 def _copy_into(dsts, srcs) -> None:
+    """Copy each source tensor into its static buffer, over nested tuples."""
     for dst, src in zip(dsts, srcs):
+        if isinstance(dst, tuple):
+            _copy_into(dst, src)
+            continue
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"shape {tuple(src.shape)}, expected {tuple(dst.shape)}")
         if src is not dst:

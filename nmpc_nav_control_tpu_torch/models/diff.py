@@ -11,7 +11,7 @@ import torch
 
 from nmpc_nav_control_tpu_torch.models.base import ModelSpec
 
-__all__ = ["SPEC", "f", "direct_kinematics", "inverse_kinematics"]
+__all__ = ["SPEC", "f", "direct_kinematics", "inverse_kinematics", "make_params"]
 
 X, Y, THETA, VL, VR, VL_REF, VR_REF = range(7)
 DVL_REF, DVR_REF = range(2)
@@ -46,6 +46,10 @@ def direct_kinematics(v, w, dist_b):
 def inverse_kinematics(vl, vr, dist_b):
     """Wheel (vl, vr) -> body (v, w)."""
     return 0.5 * (vr + vl), (vr - vl) / dist_b
+
+
+def make_params(dist_b: float, tau_v: float, dtype=torch.float64, device="cuda"):
+    return torch.tensor([dist_b, tau_v], dtype=dtype, device=device)
 
 
 SPEC = ModelSpec(

@@ -45,7 +45,7 @@ def inverse_kinematics(v1, v2, v3, v4, l1_plus_l2):
     return v, vn, w
 
 
-def make_params(l1_plus_l2: float, tau_v: float, dtype=torch.float64, device="cpu"):
+def make_params(l1_plus_l2: float, tau_v: float, dtype=torch.float64, device="cuda"):
     return torch.tensor([l1_plus_l2, tau_v], dtype=dtype, device=device)
 
 

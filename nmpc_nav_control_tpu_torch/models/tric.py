@@ -54,7 +54,7 @@ def f_bug_compat(x, u, p):
 
 
 def make_params(dist_d: float, tau_v: float, tau_a: float, dtype=torch.float64,
-                device="cpu"):
+                device="cuda"):
     return torch.tensor([dist_d, tau_v, tau_a], dtype=dtype, device=device)
 
 

@@ -1,3 +1,23 @@
-from nmpc_nav_control_tpu_torch.utils.angles import dist, norm_ang_rad, unwrap_angle
+from nmpc_nav_control_tpu_torch.utils.angles import (
+    dist,
+    norm_ang_deg,
+    norm_ang_rad,
+    unwrap_angle,
+)
+from nmpc_nav_control_tpu_torch.utils.telemetry import (
+    MetricsRegistry,
+    channel,
+    configure,
+    metrics,
+)
 
-__all__ = ["dist", "norm_ang_rad", "unwrap_angle"]
+__all__ = [
+    "MetricsRegistry",
+    "channel",
+    "configure",
+    "dist",
+    "metrics",
+    "norm_ang_deg",
+    "norm_ang_rad",
+    "unwrap_angle",
+]

@@ -2,6 +2,7 @@
 
 Port of ``nmpc_nav_control_tpu/utils/angles.py``:
   - ``norm_ang_rad``  — reference ``include/nmpc_nav_control/utils.h:33-47``
+  - ``norm_ang_deg``  — reference ``include/nmpc_nav_control/utils.h:17-31``
   - ``unwrap_angle``  — reference ``src/nmpc_nav_control/NMPCNavControl.cpp:25-31``
   - ``dist``          — reference ``include/nmpc_nav_control/utils.h:8-14``
 """
@@ -11,7 +12,7 @@ import math
 
 import torch
 
-__all__ = ["norm_ang_rad", "unwrap_angle", "dist"]
+__all__ = ["norm_ang_rad", "norm_ang_deg", "unwrap_angle", "dist"]
 
 
 def norm_ang_rad(angle):
@@ -20,6 +21,11 @@ def norm_ang_rad(angle):
     ``torch.remainder`` takes the sign of the divisor, like ``jnp.mod``.
     """
     return torch.remainder(angle + math.pi, 2.0 * math.pi) - math.pi
+
+
+def norm_ang_deg(angle):
+    """Normalize an angle in degrees to [-180, 180)."""
+    return torch.remainder(angle + 180.0, 360.0) - 180.0
 
 
 def unwrap_angle(current, previous):

@@ -7,17 +7,19 @@ CPU:
   card to the plain versions.
 - A tick hands every kernel wrapper the ``impl`` of that rule, on both
   routes (the wrappers are wrapped to record it).
-- The tick path (``qp/``, ``rti/``, ``control/``, ``ops/linearize_packed.py``)
-  holds no host synchronisation and no index copied from the host.  A
+- The tick path (``qp/``, ``rti/``, ``control/`` with the state machine,
+  ``paths/``, ``ops/linearize_packed.py``) holds no host synchronisation
+  and no index copied from the host.  A
   CUDA graph cannot capture those.  Two checks: a scan of the source for
   ``.item()``, ``.cpu()``, ``.tolist()``, ``.numpy()``, ``.nonzero()``,
   ``bool()``, ``float()`` or ``int()`` of a value, ``torch.tensor(``,
   ``torch.as_tensor(``, ``torch.from_numpy(``, ``.any()``/``.all()`` as an
   ``if`` or ``while`` test, and lists as indices; and a whole tick on
   ``meta`` tensors, which hold no values, so that any read of a value on
-  the host (a truth test, ``int()``, ``.item()``, ...) raises.
-- ``GraphedController`` raises without a card; the wrappers take "kernel"
-  or "plain" and nothing else.
+  the host (a truth test, ``int()``, ``.item()``, ...) raises; the same
+  for a whole navigation tick (``node_tick``) per geometry.
+- ``GraphedController`` and ``GraphedNavigator`` raise without a card; the
+  wrappers take "kernel" or "plain" and nothing else.
 
 ``gpu`` (skip without a card; run with ``--noconftest`` where JAX is not
 installed):
@@ -27,7 +29,13 @@ installed):
   trajectory and keeps the carry;
 - an f64 controller on the card (default device) agrees with the f64 CPU
   run to rounding on both routes and launches no kernel, eagerly and
-  graphed.
+  graphed;
+- the graphed navigation tick (``GraphedNavigator``) equals the eager
+  ``node_tick`` over chained ticks of a mixed batch (idle, GoToPose,
+  FollowPath, Break, invalid input) with events between replays, diff on
+  the default route and omni4 and tric on the Riccati route, with the
+  capture's launch counts exactly one controller tick's; ``reset`` makes
+  every lane an idle node.
 """
 import ast
 import collections
@@ -42,10 +50,13 @@ import nmpc_nav_control_tpu_torch.qp.ipm as ipm
 import nmpc_nav_control_tpu_torch.qp.ipm_batched as ipm_batched
 from nmpc_nav_control_tpu_torch.control import (
     GraphedController,
+    GraphedNavigator,
     controller_init,
     controller_step,
     make_controller,
 )
+from nmpc_nav_control_tpu_torch.control import state_machine as sm
+from nmpc_nav_control_tpu_torch.paths import make_line_segment
 from nmpc_nav_control_tpu_torch.ops import _build
 from nmpc_nav_control_tpu_torch.ops import riccati_fused as rf
 
@@ -53,7 +64,7 @@ torch.set_num_threads(1)
 
 PKG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "nmpc_nav_control_tpu_torch")
-TICK_PATH = ("qp", "rti", "control", os.path.join("ops", "linearize_packed.py"))
+TICK_PATH = ("qp", "rti", "control", "paths", os.path.join("ops", "linearize_packed.py"))
 N = 10
 GEOMETRIES = {
     "diff": dict(dist_b=0.27, tau_v=0.1, v_max=1.0, a_max=2.0,
@@ -173,9 +184,11 @@ def test_wrappers_take_kernel_or_plain():
         assert torch.equal(got, want)
 
 
-# Functions of the scanned files that build a controller and never run in
-# a tick: they copy host values to the device by design.
-BUILD_TIME = {"make_controller"}
+# Functions of the scanned files that build a controller, a path segment, a
+# window or a node state and never run in a tick: they copy host values to
+# the device by design.
+BUILD_TIME = {"make_controller", "make_line_segment", "make_cubic_segment", "_make_segment",
+              "make_path_list", "window_init", "node_init"}
 
 
 def _nodes(tree):
@@ -227,7 +240,7 @@ def test_tick_path_has_no_host_syncs():
             files += [os.path.join(path, n) for n in sorted(os.listdir(path)) if n.endswith(".py")]
         else:
             files.append(path)
-    assert len(files) >= 9
+    assert len(files) >= 16
     bad = []
     for path in files:
         tree = ast.parse(open(path).read(), path)
@@ -263,10 +276,30 @@ def test_tick_reads_no_value_on_the_host(geometry, route, monkeypatch):
     assert state.us.shape == (4, N, spec.dims.model.nu) and stats.ok.shape == (4,)
 
 
+@pytest.mark.parametrize("geometry", ["diff", "omni4", "tric"])
+def test_node_tick_reads_no_value_on_the_host(geometry, monkeypatch):
+    """Two whole navigation ticks on ``meta`` tensors (default route, the
+    "fast" discretizer), as for the controller tick above."""
+    monkeypatch.setattr(_build, "use_kernel", lambda tensors, impl: False)
+    spec, data = make_controller(geometry, 0.025, N, device="cpu", **GEOMETRIES[geometry])
+    data = type(data)(*(t.to("meta") for t in data))
+    cfg = sm.NavConfig(path_capacity=8)
+    state = sm.node_init(spec, cfg, 4, torch.float32, "meta")
+    pose, vel, _, _, steer = (t.to("meta") for t in _inputs(4, N, torch.float32, "cpu"))
+    flag = torch.ones(4, dtype=torch.bool, device="meta")
+    meas = sm.Measurements(pose, vel, steer, flag, flag, flag)
+    for _ in range(2):
+        state, out = sm.node_tick(spec, data, cfg, state, meas)
+    assert out.cmd.v.device.type == "meta" and out.debug_path.shape == (4, N + 1, 3)
+    assert state.window.segs.cx.shape == (4, 8, 8) and out.status_code.dtype == torch.int32
+
+
 def test_graphed_controller_needs_a_card():
     spec, data = make_controller("diff", 0.025, N, device="cpu", **GEOMETRIES["diff"])
     with pytest.raises(RuntimeError, match="CUDA"):
         GraphedController(spec, data, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GraphedNavigator(spec, data, sm.NavConfig(), 4)
 
 
 # --------------------------------------------------------------------------- #
@@ -340,3 +373,96 @@ def test_f64_controller_on_the_card(cuda_device, geometry, route, monkeypatch):
         runs[where] = state.us.cpu()
     for where in ("cuda", "graph"):
         torch.testing.assert_close(runs[where], runs["cpu"], rtol=0.0, atol=1e-8, msg=where)
+
+
+def _nav_lanes(spec, cfg, device):
+    """A mixed batch built from single-lane states: idle, GoToPose, two
+    FollowPath lanes, Break, and a GoToPose lane whose input turns invalid;
+    returns (state, per-lane pose offsets, vel_valid)."""
+    def fresh():
+        return sm.node_init(spec, cfg, 1, torch.float32, device)
+
+    def path(*segs):
+        segs = [make_line_segment(*s, device=device) for s in segs]
+        stacked = type(segs[0])(*(torch.stack(x) for x in zip(*segs)))
+        pad = cfg.path_capacity - len(segs)
+        return sm.on_path_set(fresh(), cfg, type(stacked)(*(
+            torch.cat([x, torch.zeros((pad,) + x.shape[1:], dtype=x.dtype, device=device)])[None]
+            for x in stacked)), len(segs), 7)
+
+    goal = torch.tensor([0.5, 0.1, 0.2], device=device)
+    lanes = [fresh(), sm.on_goal_pose(fresh(), goal),
+             path(((0, 0), (1.0, 0)), ((1.0, 0), (2.0, 0.5))),
+             path(((0, 0), (0.2, 0), 0.5), ((0.2, 0), (0.0, 0), -0.5)),
+             sm.on_command(sm.on_goal_pose(fresh(), goal), "break"),
+             sm.on_goal_pose(fresh(), goal)]
+
+    def cat(*xs):
+        if isinstance(xs[0], tuple):
+            return type(xs[0])(*(cat(*v) for v in zip(*xs)))
+        return torch.cat(xs)
+
+    poses = torch.tensor([[0, 0, 0], [0, 0, 0], [0.02, 0.01, 0.05], [0.19, 0, 0], [0, 0, 0],
+                          [0, 0, 0]], dtype=torch.float32, device=device)
+    vel_valid = torch.tensor([True] * 5 + [False], device=device)
+    return cat(*lanes), poses, vel_valid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geometry,route", [("diff", "1"), ("omni4", "0"), ("tric", "0")])
+def test_graphed_navigator_equals_eager(cuda_device, geometry, route, monkeypatch):
+    monkeypatch.setenv("NMPC_TPU_TILED_IPM", route)
+    spec, data = make_controller(geometry, 0.025, 40, **GEOMETRIES[geometry])
+    cfg = sm.NavConfig(path_capacity=8)
+    state, poses, vel_valid = _nav_lanes(spec, cfg, cuda_device)
+    lanes = poses.shape[0]
+    graphed = GraphedNavigator(spec, data, cfg, lanes)
+    graphed.load_state(state)
+    rng = np.random.default_rng(2)
+    goal = torch.tensor([0.4, -0.1, 0.0], device=cuda_device)
+    seg = make_line_segment((0, 0), (0.8, 0.1), velocity=0.4, device=cuda_device)
+    segs = type(seg)(*(torch.cat([x[None], torch.zeros((7,) + x.shape, dtype=x.dtype,
+                                                        device=cuda_device)])[None]
+                       .expand(lanes, *((-1,) * (x.dim() + 1))) for x in seg))
+    events = {2: ("on_goal_pose", (goal,)), 3: ("on_path_set", (segs, 1, 9)),
+              4: ("on_command", ("break",))}
+    eager = state
+    for k in range(6):
+        if k in events:
+            name, args = events[k]
+            getattr(graphed, name)(*args)
+            if name == "on_path_set":
+                eager = sm.on_path_set(eager, cfg, *args)
+            else:
+                eager = getattr(sm, name)(eager, *args)
+        noise = torch.as_tensor(rng.normal(size=(lanes, 3)) * 1e-3, dtype=torch.float32,
+                                device=cuda_device)
+        flag = torch.ones(lanes, dtype=torch.bool, device=cuda_device)
+        meas = sm.Measurements(poses + noise, noise, noise[:, 0], flag, vel_valid, flag)
+        if k == 0:
+            graphed.load_measurements(meas)
+            assert graphed.capture() == PER_TICK[route]
+            _build.reset_launch_counts()
+        g_state, g_out = graphed.step(meas)
+        got = [t.clone() for t in (*_tensors(g_state), *_tensors(g_out))]
+        eager, out = sm.node_tick(spec, data, cfg, eager, meas)
+        want = [*_tensors(eager), *_tensors(out)]
+        for i, (g, w) in enumerate(zip(got, want)):
+            if w.is_floating_point():
+                torch.testing.assert_close(g, w, rtol=0.0, atol=GRAPH_ATOL, msg=f"tick {k} {i}")
+            else:
+                assert torch.equal(g, w), f"tick {k} leaf {i}"
+    # Replays count nothing: the counts are the 6 eager ticks'.
+    assert _build.launch_counts() == {k: 6 * v for k, v in PER_TICK[route].items()}
+    # The break at tick 4 idles every lane but the one with invalid input.
+    assert g_state.status.tolist() == [sm.IDLE] * (lanes - 1) + [sm.ERROR]
+    graphed.reset()
+    assert graphed.state.status.tolist() == [sm.IDLE] * lanes
+    assert not bool(graphed.state.window.total_count.any())
+
+
+def _tensors(tree):
+    """Every tensor of a nested NamedTuple, in field order."""
+    if isinstance(tree, tuple):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree]

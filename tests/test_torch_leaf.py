@@ -49,6 +49,9 @@ def test_angles_match_jax():
                                np.asarray(jang.norm_ang_rad(_j(a))), **TOL)
     np.testing.assert_allclose(angles.unwrap_angle(_t(a), _t(b)).numpy(),
                                np.asarray(jang.unwrap_angle(_j(a), _j(b))), **TOL)
+    deg = rng.uniform(-1000.0, 1000.0, 257)
+    np.testing.assert_allclose(angles.norm_ang_deg(_t(deg)).numpy(),
+                               np.asarray(jang.norm_ang_deg(_j(deg))), **TOL)
     xy = rng.normal(size=(4, 257))
     np.testing.assert_allclose(angles.dist(*map(_t, xy)).numpy(),
                                np.asarray(jang.dist(*map(_j, xy))), **TOL)
@@ -69,6 +72,8 @@ def test_diff_model_and_kinematics_match_jax():
             np.testing.assert_allclose(g.numpy(), np.asarray(r), **TOL)
     assert (diff.SPEC.nx, diff.SPEC.nu, diff.SPEC.idxbx, diff.SPEC.idxbu) == (
         jdiff.SPEC.nx, jdiff.SPEC.nu, jdiff.SPEC.idxbx, jdiff.SPEC.idxbu)
+    np.testing.assert_allclose(diff.make_params(0.27, 0.1, device="cpu").numpy(),
+                               np.asarray(jdiff.make_params(0.27, 0.1)), **TOL)
 
 
 def test_rk4_linearize_rollout_match_jax():
@@ -152,9 +157,9 @@ def test_omni4_kinematics_and_params_match_jax():
     for g, r in zip(omni4.inverse_kinematics(*map(_t, wheels), 0.535),
                     jomni4.inverse_kinematics(*map(_j, wheels), 0.535)):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), **TOL)
-    np.testing.assert_allclose(omni4.make_params(0.535, 0.1).numpy(),
+    np.testing.assert_allclose(omni4.make_params(0.535, 0.1, device="cpu").numpy(),
                                np.asarray(jomni4.make_params(0.535, 0.1)), **TOL)
-    np.testing.assert_allclose(tric.make_params(1.05, 0.1, 0.2).numpy(),
+    np.testing.assert_allclose(tric.make_params(1.05, 0.1, 0.2, device="cpu").numpy(),
                                np.asarray(jtric.make_params(1.05, 0.1, 0.2)), **TOL)
 
 

@@ -2,8 +2,10 @@
 
 In a subprocess where ``import jax`` fails, the port is imported and one
 batched controller tick runs for each geometry on each IPM route (the fused
-sweeps and the Riccati solve, which between them import every module of the
-package); and no module of the package names JAX in an import.
+sweeps and the Riccati solve), then one navigation tick (``node_tick``, on a
+path and on a goal) for each geometry and one tick of the runtime's node,
+which between them import every module of the package; and no module of
+the package names JAX in an import.
 """
 import ast
 import os
@@ -27,12 +29,13 @@ torch.set_num_threads(1)
 from nmpc_nav_control_tpu_torch.control import controller_init, controller_step, make_controller
 import nmpc_nav_control_tpu_torch.convert
 import nmpc_nav_control_tpu_torch.qp.riccati
+GEOMETRIES = (("diff", dict(dist_b=0.27, q_diag=[1.0] * 7, r_diag=[1.0] * 2)),
+              ("omni4", dict(l1_plus_l2=0.535, q_diag=[1.0] * 11, r_diag=[1.0] * 4)),
+              ("tric", dict(dist_d=1.05, alpha_min=-1.0, alpha_max=1.0,
+                            dalpha_max=1.5, q_diag=[1.0] * 7, r_diag=[1.0] * 2)))
 for route in ("1", "0"):
     os.environ["NMPC_TPU_TILED_IPM"] = route
-    for geometry, kw in (("diff", dict(dist_b=0.27, q_diag=[1.0] * 7, r_diag=[1.0] * 2)),
-                         ("omni4", dict(l1_plus_l2=0.535, q_diag=[1.0] * 11, r_diag=[1.0] * 4)),
-                         ("tric", dict(dist_d=1.05, alpha_min=-1.0, alpha_max=1.0,
-                                       dalpha_max=1.5, q_diag=[1.0] * 7, r_diag=[1.0] * 2))):
+    for geometry, kw in GEOMETRIES:
         spec, data = make_controller(geometry, 0.025, 10, v_max=1.0, a_max=2.0, device="cpu", **kw)
         state = controller_init(spec, 2, device="cpu")
         traj = torch.zeros(2, 11, 3)
@@ -41,6 +44,40 @@ for route in ("1", "0"):
                                             torch.zeros(2, 3), traj,
                                             torch.ones(2, dtype=torch.int32))
         assert bool(stats.ok.all()), (geometry, route, stats)
+from nmpc_nav_control_tpu_torch.control import state_machine as sm
+from nmpc_nav_control_tpu_torch.paths import make_line_segment
+from nmpc_nav_control_tpu_torch import runtime
+os.environ["NMPC_TPU_TILED_IPM"] = "1"
+
+
+def cat(a, b):
+    if isinstance(a, tuple):
+        return type(a)(*(cat(x, y) for x, y in zip(a, b)))
+    return torch.cat([a, b])
+
+
+for geometry, kw in GEOMETRIES:
+    spec, data = make_controller(geometry, 0.025, 10, v_max=1.0, a_max=2.0, device="cpu", **kw)
+    cfg = sm.NavConfig(path_capacity=4)
+    seg = make_line_segment((0, 0), (1, 0), velocity=0.5, device="cpu")
+    segs = type(seg)(*(torch.cat([x[None], torch.zeros((3,) + x.shape, dtype=x.dtype)])[None]
+                       for x in seg))
+    goal = torch.tensor([0.3, 0.0, 0.0])
+    on_path = sm.on_path_set(sm.on_goal_pose(sm.node_init(spec, cfg, 1, device="cpu"), goal),
+                             cfg, segs, 1)
+    state = cat(on_path, sm.on_goal_pose(sm.node_init(spec, cfg, 1, device="cpu"), goal))
+    flag = torch.ones(2, dtype=torch.bool)
+    meas = sm.Measurements(torch.zeros(2, 3), torch.zeros(2, 3), torch.zeros(2), flag, flag, flag)
+    state, out = sm.node_tick(spec, data, cfg, state, meas)
+    assert state.status.tolist() == [sm.FOLLOW_PATH, sm.GO_TO_POSE], (geometry, state.status)
+    assert bool(out.solve_ok.all()) and bool(out.publish_cmd.all()), geometry
+node = runtime.NmpcNavControlNode(runtime.from_dict(dict(
+    steering_geometry="diff", tf_ini=0.25, rob_dist_between_wh=0.27, rob_wh_vel_time_const=0.1,
+    rob_wh_max_vel=1.0, rob_wh_max_ace=2.0, cost_matrix_weights_state_diag=[10.0] * 3 + [0] * 4,
+    cost_matrix_weights_input_diag=[1.0, 1.0])), device="cpu")
+node.on_pose_goal(runtime.PoseStamped("map", 0.3, 0.0, 0.0))
+twist, status = node.tick((0, 0, 0), (0, 0, 0))
+assert status.status == 1 and twist is not None
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m] is not None)
 print("ok", float(cmd.v[0]))
 """
