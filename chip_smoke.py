@@ -13,10 +13,11 @@ It imports nothing of JAX.  Phases, each printing one line per result:
   2. each IPM sweep kernel against its plain torch version on the card, on
      random valid IPM inputs for the diff and the omni4 specialisations, at
      N=40 with B = 2048, 1 and 1000 (a ragged last block), at N=80 with
-     B=17 (ragged, batch rows not 16-byte aligned) and at N=13 with B=17 (no
+     B=17 (ragged, batch rows not 16-byte aligned) and B=1 (phase 12's node
+     tick), and at N=13 with B=17 (no
      multiple of any sweep's chunk of stages), within rtol 1e-4 /
      atol 1e-5; kernel and plain times at B=2048 from CUDA events, device
-     times from the profiler at B=2048 and B=1;
+     times from the profiler at B=2048 and B=1 (N=40 and N=80);
   3. the main path: 20 chained batched ``controller_step`` ticks, diff N=40,
      B=2048, 8 IPM iterations, f32, with the inputs of ``bench.py``, eager
      and then through ``GraphedController`` (the tick captured in a CUDA
@@ -35,12 +36,13 @@ It imports nothing of JAX.  Phases, each printing one line per result:
      ``tests/oracle/numpy_rti.closed_loop`` with the port's step on the card,
      within the bounds of ``tests/test_rti_oracle.py``;
   6. each Riccati kernel against its plain version on the card, at
-     (nx, nu) = (7, 2) and (11, 4), N=40 with B = 2048, 1 and 1000, and
-     N = 13 and 1 with B=17 (chunk edges, a ragged last block), with a
+     (nx, nu) = (7, 2) and (11, 4), N=40 with B = 2048, 1 and 1000, N=80
+     with B=1 (phase 12's node tick: five whole chunks of 16 stages, one
+     lane), and N = 13 and 1 with B=17 (chunk edges, a ragged last block), with a
      non-positive Quu pivot, a NaN in c and an Inf in qx in three lanes
      where B holds them: NaN and Inf in the same places, the finite values
      within the f32 bounds of ``tests/test_pallas_riccati.py``; kernel and
-     plain times at B=2048, device times at B=2048 and B=1;
+     plain times at B=2048, device times at B=2048 and B=1 (N=40 and N=80);
   7. the Riccati route (``NMPC_TPU_TILED_IPM=0``): phase 3's runs for
      ``bench.py``'s omni4 configuration at B=2048 and B=1, launch counts
      exactly 8 / 16 / 16 Riccati kernels a tick (eager and at capture) and
@@ -75,7 +77,31 @@ It imports nothing of JAX.  Phases, each printing one line per result:
      lock step, fed one numpy plant driven by the card's commands, on the
      two-line path of ``tests/test_state_machine.py``: it reaches IDLE with
      no ERROR, the CPU node shows the same status at every tick, and the
-     largest command gap between them is printed.
+     largest command gap between them is printed;
+ 12. the host runtime and the command line at the runtime YAMLs' N=80, run
+     in this process (``nmpc_nav_control_tpu_torch.__main__.main``, stdout
+     captured and parsed): (a) ``prepare config/models.yaml`` for the three
+     sections, each tick captured with one tick's launches (8/8/8/8/1) and a
+     finite smoke command; (b) ``run`` on ``config/runtime_{diff,omni4,tric}
+     .yaml`` to the goal (1, 0, 0) with the native 40 Hz timer: IDLE within
+     1.5x the ticks at which the JAX command line reports it on a CPU
+     (``JAX_IDLE_TICKS``), no ERROR, the final error inside the YAML's
+     ``final_position_error``, the capture's launches 8/8/8/8/1 and the
+     run's (two warm-up ticks and the capture; replays count nothing)
+     three times that, the native timer in use, and the cycles after the
+     capture (host clock) under the 25 ms budget at p50; (c) ``run`` for
+     diff on the path ``0 0 1 0 1 1`` to IDLE the same way; (d) one graphed
+     N=80 node tick at B=1 per geometry on each route, profiled: device ms,
+     the port's kernels' share, idle, and each kernel's device ms and
+     launches inside it; (e) a diff node on that path for 40 ticks against
+     the simulated plant, its state saved (``runtime/checkpoint.py``),
+     loaded into a fresh graphed node with a copy of the plant, and 40 more
+     ticks: the commands and plant poses equal the uninterrupted node's
+     bit for bit; (f) a graphed diff node on the card and an eager one on
+     the CPU in lock step for 12 ticks on that path, both fed the plant
+     driven by the card's commands: the same status at every tick, and the
+     largest command gap within the golden suite's f32 command bound
+     (2.5e-2), printed.
 
 Any failure raises, and the script exits non-zero.  Before the last line it
 prints the kernels as one JSON object (each with its bound: the bytes it
@@ -86,11 +112,15 @@ A fuller record (with the nvcc/ptxas log) goes to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import ast
+import contextlib
+import io
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -110,6 +140,11 @@ GRAPH_TOL = 3.6e-6               # graphed vs eager tick: the f32 batched-vs-ser
 NAV_TICKS_SHORT = 5              # phase 11's omni4 and tric chains
 F64_TOL = 1e-8                   # f64 card vs CPU (tests/test_torch_slice.py's f64 bound)
 BUDGET_MS = 25.0                 # the reference's 40 Hz tick
+# The report boundary (the tick of the first "status=0" line) at which the
+# JAX command line, run with phase 12's arguments (the goal (1, 0, 0) and
+# --ticks 200 per geometry; diff on the path 0 0 1 0 1 1 with --ticks 400;
+# --no-rt, f32, on a CPU), prints IDLE (PERF.md section 4).
+JAX_IDLE_TICKS = {"diff": 100, "omni4": 120, "tric": 100, "path": 240}
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
 
@@ -189,21 +224,34 @@ PORT_KERNEL = re.compile(r"namespace\)::(bwd_fused_kernel|fwd_kernel|bwd_corr_ke
                          r"factor_kernel|solve_bwd_kernel|solve_fwd_kernel)<")
 
 
+# The port's kernels as the profiler names them -> their wrappers.
+KERNEL_OF = ((r"::bwd_fused_kernel<", "ipm_bwd_fused"),
+             (r"::fwd_kernel<[^>]*false>", "ipm_fwd_affine"),
+             (r"::bwd_corr_kernel<", "ipm_bwd_corr"),
+             (r"::fwd_kernel<[^>]*true>", "ipm_fwd_corr"),
+             (r"::kkt_kernel<", "ipm_kkt_fused"),
+             (r"::factor_kernel<", "riccati_factor"),
+             (r"::solve_bwd_kernel<", "riccati_solve_bwd"),
+             (r"::solve_fwd_kernel<", "riccati_solve_fwd"))
+
+
 def _tick_breakdown(torch, fn, reps=5):
-    """(device ms of all kernels, of the port's kernels) per call of ``fn``
-    (one graphed tick) from torch.profiler; None where the trace shows no
-    device time."""
+    """(device ms of all kernels, of the port's kernels, {wrapper: (ms,
+    launches)} of the port's) per call of ``fn`` (one graphed tick) from
+    torch.profiler; None where the trace shows no device time."""
     fn()
     torch.cuda.synchronize()
-    total = port = 0.0
+    total, split = 0.0, {}
     for e in _profile(torch, fn, reps):
         t = getattr(e, "self_device_time_total", 0.0)
         total += t
         if PORT_KERNEL.search(e.key):
-            port += t
+            name = next((n for key, n in KERNEL_OF if re.search(key, e.key)), e.key)
+            ms, count = split.get(name, (0.0, 0))
+            split[name] = (ms + t / reps / 1000.0, count + e.count / reps)
     if total <= 0:
         return None
-    return total / reps / 1000.0, port / reps / 1000.0
+    return total / reps / 1000.0, sum(ms for ms, _ in split.values()), split
 
 
 def _ptxas_kernels(log):
@@ -625,6 +673,265 @@ def _phase_nav(torch, dev, controller_ms):
     return out
 
 
+# ---- Phase 12: the host runtime and the command line at N=80. ----
+
+GOAL = ("1.0", "0.0", "0.0")
+PATH = ("0", "0", "1", "0", "1", "1")
+IDLE_FACTOR = 1.5
+CHECKPOINT_TICKS = 40            # phase 12 (e): ticks before and after the checkpoint
+LOCKSTEP_TICKS = 12              # phase 12 (f): card and CPU node ticks in lock step
+
+def _cli(argv):
+    """(rc, stdout lines) of the port's command line run in this process."""
+    from nmpc_nav_control_tpu_torch.__main__ import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(list(argv))
+    return rc, buf.getvalue().splitlines()
+
+
+def _prepare(torch):
+    """Phase 12 (a): ``prepare config/models.yaml``."""
+    rc, lines = _cli(["prepare", os.path.join(ROOT, "config", "models.yaml")])
+    for line in lines:
+        print(f"phase 12 prepare | {line}")
+    captured = {m.group(1): (float(m.group(2)), ast.literal_eval(m.group(3))) for m in (
+        re.match(r"\[(\w+)\] captured one tick in a CUDA graph: ([\d.]+)s, launches (\{.*\})",
+                 line) for line in lines) if m}
+    smoke = {m.group(1): m.group(2) for m in (
+        re.match(r"\[(\w+)\] smoke solve OK: (cmd=.*)", line) for line in lines) if m}
+    if rc != 0 or set(captured) != set(smoke) or set(smoke) != {"diff", "omni4", "tric"}:
+        raise AssertionError(f"phase 12 prepare: rc {rc}, captured {sorted(captured)}, "
+                             f"smoke {sorted(smoke)}")
+    for geom, (secs, launches) in captured.items():
+        if launches != PER_TICK:
+            raise AssertionError(f"phase 12 prepare {geom}: launches at capture {launches}")
+        print(f"phase 12 prepare {geom}: capture {secs:.3f} s, launches {launches}, smoke "
+              f"{smoke[geom]}")
+    return {g: dict(capture_s=c[0], smoke=smoke[g]) for g, c in captured.items()}
+
+
+def _run(torch, what, geometry, args, jax_ticks, ticks):
+    """Phase 12 (b), (c): ``run`` on the card with the native timer, to IDLE."""
+    from nmpc_nav_control_tpu_torch.ops import _build
+    from nmpc_nav_control_tpu_torch.control.graph import WARMUP_TICKS
+    from nmpc_nav_control_tpu_torch.runtime import load_config
+
+    cfg_path = os.path.join(ROOT, "config", f"runtime_{geometry}.yaml")
+    config = load_config(cfg_path)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, lines = _cli(["run", "--config", cfg_path, "--ticks", str(ticks), "--log-level",
+                      "warning", *args])
+    seconds = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    for line in lines:
+        print(f"phase 12 {what} | {line}")
+    text = "\n".join(lines)
+    boundaries = [(round(float(t) / config.dt), int(st)) for t, st in
+                  re.findall(r"t=\s*([\d.]+)s pose=\(.*\) status=(\d)", text)]
+    idle = next((k for k, st in boundaries if st == 0), None)
+    capture = re.search(r"capture cycle: ([\d.]+)ms \(.*launches (\{.*\})\)", text)
+    steady = re.search(r"cycles after the capture: count=(\d+) p50=([\d.]+)ms p99=([\d.]+)ms "
+                       r"max=([\d.]+)ms violations=(\d+)", text)
+    overruns = re.search(r"overruns=(\d+)", text)
+    if rc != 0 or capture is None or steady is None or overruns is None:
+        raise AssertionError(f"phase 12 {what}: rc {rc}, output {lines}")
+    launches = ast.literal_eval(capture.group(2))
+    r = dict(idle_tick_at_most=idle, capture_ms=float(capture.group(1)), launches=launches,
+             run_launches=counts, p50_ms=float(steady.group(2)), p99_ms=float(steady.group(3)),
+             max_ms=float(steady.group(4)), violations=int(steady.group(5)),
+             overruns=int(overruns.group(1)), seconds=seconds, jax_ticks=jax_ticks)
+    err = re.search(r"final position error: ([\d.]+) cm", text)
+    if err is not None:
+        r["final_error_cm"] = float(err.group(1))
+    faults = []
+    if any(st == 2 for _, st in boundaries):
+        faults.append("ERROR status")
+    if idle is None or "goal reached -> Idle" not in text:
+        faults.append("no IDLE")
+    elif jax_ticks is not None and idle > IDLE_FACTOR * jax_ticks:
+        faults.append(f"IDLE seen at tick {idle}, over {IDLE_FACTOR} x {jax_ticks} (JAX)")
+    if err is not None and not float(err.group(1)) <= 100 * config.nav.final_position_error:
+        faults.append(f"final error {err.group(1)} cm")
+    if launches != PER_TICK:
+        faults.append(f"launches at capture {launches}")
+    if counts != {k: v * (WARMUP_TICKS + 1) for k, v in PER_TICK.items()}:
+        faults.append(f"the run launched {counts}, not {WARMUP_TICKS} warm-up ticks' and the "
+                      f"capture's")
+    if "native timer:" not in text:
+        faults.append("not on the native timer")
+    if not r["p50_ms"] < BUDGET_MS:
+        faults.append(f"p50 cycle {r['p50_ms']} ms")
+    if faults:
+        raise AssertionError(f"phase 12 {what}: {'; '.join(faults)}")
+    print(f"phase 12 {what}: IDLE by tick {idle} (JAX CLI on the CPU: {jax_ticks}), no ERROR, "
+          f"capture {r['capture_ms']:.1f} ms with launches {launches}, cycles after it p50 "
+          f"{r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms, max {r['max_ms']:.3f} ms (host "
+          f"clock), {r['violations']} over 25 ms, {r['overruns']} overruns, native timer, "
+          f"{seconds:.1f} s")
+    return r
+
+
+def _tick_profile(torch, geometry):
+    """Phase 12 (d): one graphed N=80 node tick at B=1, each route."""
+    from nmpc_nav_control_tpu_torch.runtime import NmpcNavControlNode, PoseStamped, load_config
+
+    config = load_config(os.path.join(ROOT, "config", f"runtime_{geometry}.yaml"))
+    node = NmpcNavControlNode(config)
+    node.on_pose_goal(PoseStamped("map", 1.0, 0.0, 0.0))
+    out = {}
+    for route, per_tick in (("1", PER_TICK), ("0", RICCATI_PER_TICK)):
+        _set_route(route)
+        node.tick((0.0, 0.0, 0.0), (0.0, 0.0, 0.0))             # captures for this route
+        if node.capture_launches != per_tick:
+            raise AssertionError(f"phase 12 tick {geometry} route {route}: launches at capture "
+                                 f"{node.capture_launches}")
+        nav = node._graphed
+        graphed_ms = _time_ms(torch, nav.step)
+        split = _tick_breakdown(torch, nav.step)
+        label = "Riccati" if route == "0" else "default"
+        what = f"phase 12 tick {geometry} N={config.horizon} B=1 {label} route"
+        r = dict(graphed_ms=graphed_ms, launches=node.capture_launches)
+        if split is None:
+            print(f"{what}: {graphed_ms:.3f} ms/tick graphed; device not measured")
+        else:
+            device_ms, kernel_ms, per = split
+            r.update(device_ms=device_ms, kernel_ms=kernel_ms,
+                     kernels={k: dict(ms=v[0], launches=v[1]) for k, v in per.items()})
+            each = ", ".join(f"{k} {v[0]:.4f} ms in {v[1]:g} launches" for k, v in per.items())
+            print(f"{what}: {graphed_ms:.3f} ms/tick graphed (CUDA events, 20 replays), "
+                  f"device {device_ms:.3f} ms (idle "
+                  f"{100 * (1 - device_ms / graphed_ms):.1f}%), port kernels {kernel_ms:.3f} ms "
+                  f"({100 * kernel_ms / graphed_ms:.1f}% of the tick): {each}")
+        out[label] = r
+    _set_route("1")
+    return out
+
+
+def _path_msg():
+    """``PATH`` as the node's path message: one straight segment per leg."""
+    from nmpc_nav_control_tpu_torch.runtime import ParametricPath, ParametricPathSet2
+
+    pts = [float(v) for v in PATH]
+    pts = list(zip(pts[0::2], pts[1::2]))
+    return ParametricPathSet2(paths=[ParametricPath("map", [p0[0], p1[0] - p0[0]],
+                                                    [p0[1], p1[1] - p0[1]], 0.5)
+                                     for p0, p1 in zip(pts[:-1], pts[1:])], request_id=1)
+
+
+def _checkpoint_resume(torch):
+    """Phase 12 (e): save a graphed diff node mid-path, load it into a fresh
+    one beside a copy of the plant, and hold the next ticks against the
+    uninterrupted node bit for bit."""
+    from nmpc_nav_control_tpu_torch.runtime import (
+        NmpcNavControlNode,
+        RealTimeExecutor,
+        load_config,
+    )
+    from nmpc_nav_control_tpu_torch.runtime.checkpoint import load_state, save_state
+    from nmpc_nav_control_tpu_torch.runtime.simulation import SimulatedRobot
+
+    config = load_config(os.path.join(ROOT, "config", "runtime_diff.yaml"))
+    msg = _path_msg()
+
+    def loop(node, robot):
+        return RealTimeExecutor(node, robot, robot, use_native_timer=False)
+
+    def ticks(ex, n):
+        seen = []
+        for _ in range(n):
+            ex.run(1)
+            seen.append((ex.node.last_cmd, tuple(float(v) for v in ex.provider.pose),
+                         ex.provider.last_status))
+        return seen
+
+    node = NmpcNavControlNode(config)
+    node.on_path_no_stack_up_2(msg)
+    robot = SimulatedRobot(node)
+    ex = loop(node, robot)
+    ticks(ex, CHECKPOINT_TICKS)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        path = os.path.join(d, "node.npz")
+        save_state(path, node.state)
+        plant = (robot.pose.copy(), robot.act.copy(), robot.sim_time, robot._last_refs.copy())
+        want = ticks(ex, CHECKPOINT_TICKS)
+        fresh = NmpcNavControlNode(config)
+        fresh.set_state(load_state(path, fresh.state))
+    copy = SimulatedRobot(fresh)
+    copy.pose[:], copy.act[:], copy.sim_time, copy._last_refs = plant
+    got = ticks(loop(fresh, copy), CHECKPOINT_TICKS)
+    if got != want:
+        k = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
+        raise AssertionError(f"phase 12 checkpoint: resumed tick {k} {got[k]}, uninterrupted "
+                             f"{want[k]}")
+    if want[-1][2].status == 2:
+        raise AssertionError("phase 12 checkpoint: ERROR on the path")
+    print(f"phase 12 checkpoint: diff N={config.horizon} on the path, saved after "
+          f"{CHECKPOINT_TICKS} ticks, loaded into a fresh graphed node: {CHECKPOINT_TICKS} more "
+          f"ticks with commands and plant poses equal to the uninterrupted node's bit for "
+          f"bit (last status {want[-1][2].status}, pose {want[-1][1]})")
+    return dict(ticks=CHECKPOINT_TICKS, last_status=want[-1][2].status)
+
+
+def _lockstep(torch):
+    """Phase 12 (f): the graphed N=80 diff node on the card and an eager one
+    on the CPU, fed the same plant (driven by the card's commands) on the
+    path, tick by tick."""
+    import torch_golden
+    from nmpc_nav_control_tpu_torch.runtime import NmpcNavControlNode, load_config
+    from nmpc_nav_control_tpu_torch.runtime.simulation import SimulatedRobot
+
+    config = load_config(os.path.join(ROOT, "config", "runtime_diff.yaml"))
+    card, cpu = NmpcNavControlNode(config), NmpcNavControlNode(config, device="cpu")
+    for node in (card, cpu):
+        node.on_path_no_stack_up_2(_path_msg())
+    robot = SimulatedRobot(card)
+    gap, bound = 0.0, 5 * torch_golden.U_TOL
+    for k in range(LOCKSTEP_TICKS):
+        pose, vel, _ = robot.get_state()
+        (tw, st), (tw_cpu, st_cpu) = card.tick(pose, vel), cpu.tick(pose, vel)
+        if st.status != st_cpu.status or (tw is None) != (tw_cpu is None):
+            raise AssertionError(f"phase 12 lock step tick {k}: card {st} {tw}, "
+                                 f"CPU {st_cpu} {tw_cpu}")
+        if st.status == 2:
+            raise AssertionError(f"phase 12 lock step tick {k}: ERROR")
+        if tw is not None:
+            gap = max(gap, abs(tw.linear_x - tw_cpu.linear_x),
+                      abs(tw.angular_z - tw_cpu.angular_z))
+            robot.publish_cmd_vel(tw)
+        robot.publish_status(st)
+    if not gap <= bound:
+        raise AssertionError(f"phase 12 lock step: max |cmd_card - cmd_cpu| {gap:.3e} over "
+                             f"{bound:.1e}")
+    print(f"phase 12 lock step: diff N={config.horizon} on the path, the graphed card node and "
+          f"the CPU node: {LOCKSTEP_TICKS} ticks with the same status (last {st.status}), max "
+          f"|cmd_card - cmd_cpu| {gap:.3e} (bound {bound:.1e}), pose "
+          f"({robot.pose[0]:.4f}, {robot.pose[1]:.4f}, {robot.pose[2]:.4f})")
+    return dict(ticks=LOCKSTEP_TICKS, max_cmd_gap=gap, last_status=st.status)
+
+
+def _phase_runtime(torch):
+    """Phase 12."""
+    out, t0 = {}, time.perf_counter()
+    out["prepare"] = _prepare(torch)
+    for geometry in ("diff", "omni4", "tric"):
+        out[f"run/{geometry}"] = _run(torch, f"run {geometry}", geometry, ["--goal", *GOAL],
+                                      JAX_IDLE_TICKS[geometry], 200)
+    out["run/path"] = _run(torch, "run diff path", "diff", ["--path", *PATH],
+                           JAX_IDLE_TICKS["path"], 400)
+    for geometry in ("diff", "omni4", "tric"):
+        out[f"tick/{geometry}"] = _tick_profile(torch, geometry)
+    out["checkpoint"] = _checkpoint_resume(torch)
+    out["lockstep"] = _lockstep(torch)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 12: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -691,13 +998,14 @@ def main() -> int:
     # ---- Phase 2: each IPM sweep kernel against its plain version. ----
     # The JSON line carries the diff numbers (the main path of phase 3); the
     # omni4 specialisation is checked and timed too (phase 8's path).  N=80
-    # at B=17 (ragged, rows not 16-byte aligned) holds the kernels at the
-    # reference's horizon, N=13 a short last chunk; B=1 gives each kernel's
-    # device time for one lane.
-    record["ipm_omni4"], record["device_ms_B1"] = {}, {}
+    # at B=17 (ragged, rows not 16-byte aligned) and at B=1 (phase 12's
+    # node tick) holds the kernels at the reference's horizon, N=13 a short
+    # last chunk; B=1 gives each kernel's device time for one lane.
+    record["ipm_omni4"], record["device_ms_B1"], record["device_ms_B1_N80"] = {}, {}, {}
     for config, cfg in cfgs.items():
         nx, nu, nbx, nbu = cfg.nx, cfg.nu, cfg.nbx, cfg.nbu
-        for lanes, horizon in ((2048, N), (1, N), (1000, N), (17, 2 * N), (17, 13)):
+        for lanes, horizon in ((2048, N), (1, N), (1000, N), (17, 2 * N), (1, 2 * N),
+                               (17, 13)):
             x = random_sweep_inputs(nx, nu, nbx, nbu, cfg.asp, cfg.bsp, horizon, lanes, seed=lanes)
             for name, (kern, plain, args) in _sweep_calls(torch, tp, cfg, x, dev).items():
                 got, ref = kern(), plain()
@@ -712,8 +1020,9 @@ def main() -> int:
                 k["max_abs_err"] = max(k["max_abs_err"], abs_err)
                 if lanes == 1:
                     dev_ms = _device_ms(torch, kern)
-                    print(f"phase 2 {name} {config} B=1: device {dev_ms} ms")
-                    record["device_ms_B1"][f"{name}/{config}"] = dev_ms
+                    print(f"phase 2 {name} {config} N={horizon} B=1: device {dev_ms} ms")
+                    key = "device_ms_B1" if horizon == N else "device_ms_B1_N80"
+                    record[key][f"{name}/{config}"] = dev_ms
                 if lanes != 2048:
                     continue
                 ms, plain_ms, dev_ms = _time_pair(torch, kern, plain)
@@ -863,10 +1172,11 @@ def main() -> int:
     # The JSON line carries the (11, 4) numbers: phase 7's main path is omni4.
     # Three lanes hold a negative pivot, a NaN and an Inf (where B has them);
     # N = 13 and 1 at B=17 put the chunk edges of both redesigned kernels
-    # at a ragged last block.
+    # at a ragged last block; N=80 at B=1 is phase 12's node tick (five
+    # whole 16-stage chunks, one lane).
     record["riccati_7x2"] = {}
     for nx, nu in ((7, 2), (11, 4)):
-        for horizon, lanes in ((N, 2048), (N, 1), (N, 1000), (13, 17), (1, 17)):
+        for horizon, lanes in ((N, 2048), (N, 1), (N, 1000), (2 * N, 1), (13, 17), (1, 17)):
             x = add_riccati_faults(random_riccati_inputs(nx, nu, horizon, lanes, seed=lanes))
             for name, (kern, plain, args, outs) in _riccati_calls(torch, rf, x, dev).items():
                 got, ref = kern(), plain()
@@ -886,8 +1196,9 @@ def main() -> int:
                 k["max_abs_err"] = max(k["max_abs_err"], abs_err)
                 if lanes == 1:
                     dev_ms = _device_ms(torch, kern)
-                    print(f"phase 6 {name} ({nx},{nu}) B=1: device {dev_ms} ms")
-                    record["device_ms_B1"][f"{name}/{nx}x{nu}"] = dev_ms
+                    print(f"phase 6 {name} ({nx},{nu}) N={horizon} B=1: device {dev_ms} ms")
+                    key = "device_ms_B1" if horizon == N else "device_ms_B1_N80"
+                    record[key][f"{name}/{nx}x{nu}"] = dev_ms
                 if lanes != 2048:
                     continue
                 ms, plain_ms, dev_ms = _time_pair(torch, kern, plain)
@@ -981,6 +1292,9 @@ def main() -> int:
     t_nav = time.perf_counter()
     record["nav"] = _phase_nav(torch, dev, {"2048": wide["graphed_ms"], "1": one["graphed_ms"]})
     print(f"phase 11: {time.perf_counter() - t_nav:.1f} s")
+
+    # ---- Phase 12: the host runtime and the command line at N=80. ----
+    record["runtime"] = _phase_runtime(torch)
 
     elapsed = time.perf_counter() - t_start
     print(f"chip_smoke: all phases passed in {elapsed:.1f} s")

@@ -65,6 +65,7 @@ class _GraphedTick:
     """
 
     _capture = None           # (route, graph, outputs)
+    capture_launches = None   # the last capture's launches, one tick's
 
     @staticmethod
     def _check_device(data: OCPData, what: str):
@@ -96,8 +97,10 @@ class _GraphedTick:
             new_state, outputs = self._tick()
             _copy_into(self.state, new_state)
         self._capture = (route, graph, outputs)
-        return {k: n - before.get(k, 0) for k, n in _build.launch_counts().items()
-                if n != before.get(k, 0)}
+        self.capture_launches = {k: n - before.get(k, 0)
+                                 for k, n in _build.launch_counts().items()
+                                 if n != before.get(k, 0)}
+        return self.capture_launches
 
     def _replay(self):
         if self._capture is None or self._capture[0] != tiled_ipm_ok():

@@ -144,11 +144,19 @@ class NmpcNavControlNode:
     def state(self) -> NodeState:
         return self._state if self._graphed is None else self._graphed.state
 
-    def _set_state(self, state: NodeState) -> None:
+    def set_state(self, state: NodeState) -> None:
+        """Replace the NodeState (a checkpoint's, say): on the card it is
+        copied into the graphed navigator's static buffers."""
         if self._graphed is None:
             self._state = state
         else:
             self._graphed.load_state(state)
+
+    @property
+    def capture_launches(self) -> Optional[dict]:
+        """Kernel launches of the graphed tick's capture (one tick's); None
+        on the CPU and before the first tick."""
+        return None if self._graphed is None else self._graphed.capture_launches
 
     # ------------------------------------------------------------------ #
     # Callbacks (subscriber equivalents)
@@ -158,7 +166,7 @@ class NmpcNavControlNode:
         """``goalPoseReceivedCallback`` (``:304-310``).  GoToPose ticks
         acquire the pose in the GOAL's frame (``mainCycle``, ``:520``)."""
         goal = torch.tensor([msg.x, msg.y, msg.theta], dtype=self.dtype, device=self.device)
-        self._set_state(on_goal_pose(self.state, goal))
+        self.set_state(on_goal_pose(self.state, goal))
         self._required_frame = msg.frame_id or self.config.global_frame_id
 
     def on_path_no_stack_up(self, msg: ParametricPathSet) -> None:
@@ -173,7 +181,7 @@ class NmpcNavControlNode:
         segs, n = decode_path_set(ParametricPathSet(paths=list(paths)), self.frames,
                                   self.cfg.path_capacity, self.dtype, self.device)
         segs = type(segs)(*(leaf[None] for leaf in segs))
-        self._set_state(on_path_set(self.state, self.cfg, segs, n, request_id))
+        self.set_state(on_path_set(self.state, self.cfg, segs, n, request_id))
         # FollowPath ticks acquire the pose in the FRONT ACTIVE curve's frame
         # (``mainCycle``, ``:523``): the first valid segment after ingest.
         for p in paths:
@@ -187,7 +195,7 @@ class NmpcNavControlNode:
         if command not in ("break", "idle"):
             _log_node.error("invalid_control_command", command=command)
             return False
-        self._set_state(on_command(self.state, command))
+        self.set_state(on_command(self.state, command))
         return True
 
     def set_steering_wheel_angle(self, angle: float) -> None:

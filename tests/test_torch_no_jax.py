@@ -3,15 +3,21 @@
 In a subprocess where ``import jax`` fails, the port is imported and one
 batched controller tick runs for each geometry on each IPM route (the fused
 sweeps and the Riccati solve), then one navigation tick (``node_tick``, on a
-path and on a goal) for each geometry and one tick of the runtime's node,
-which between them import every module of the package; and no module of
-the package names JAX in an import.
+path and on a goal) for each geometry, one tick of the runtime's node, and
+the command line's ``run`` for 3 ticks on the CPU, which between them and
+the host runtime's imports (executor, ingest, simulation, checkpoint,
+native, models config, ROS bridge, profiling) import every module of the
+package; and no module of the package names JAX in an import.  Without a
+card, ``prepare_solvers`` and the command line raise unless asked for the
+CPU, as the other entry points do (``test_torch_slice.py::
+test_entry_points_default_to_the_card``).
 """
 import ast
 import os
 import subprocess
 import sys
 
+import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -78,14 +84,45 @@ node = runtime.NmpcNavControlNode(runtime.from_dict(dict(
 node.on_pose_goal(runtime.PoseStamped("map", 0.3, 0.0, 0.0))
 twist, status = node.tick((0, 0, 0), (0, 0, 0))
 assert status.status == 1 and twist is not None
+import contextlib
+import io
+import nmpc_nav_control_tpu_torch.runtime.checkpoint
+import nmpc_nav_control_tpu_torch.runtime.ingest
+import nmpc_nav_control_tpu_torch.runtime.native
+import nmpc_nav_control_tpu_torch.runtime.ros_bridge
+import nmpc_nav_control_tpu_torch.runtime.simulation
+import nmpc_nav_control_tpu_torch.utils.profiling
+from nmpc_nav_control_tpu_torch.__main__ import main
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    rc = main(["run", "--config", {runtime_yaml!r}, "--device", "cpu", "--no-rt", "--ticks", "3",
+               "--goal", "0.3", "0.0", "0.0"])
+text = out.getvalue()
+assert rc == 0 and "N=10: GoToPose" in text and "status=1" in text, text
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m] is not None)
 print("ok", float(cmd.v[0]))
 """
 
 
-def test_port_imports_and_ticks_without_jax():
+RUNTIME_YAML = """
+steering_geometry: diff
+control_freq: 40
+tf_ini: 0.25
+rob_dist_between_wh: 0.27
+rob_wh_vel_time_const: 0.1
+rob_wh_max_vel: 1.0
+rob_wh_max_ace: 2.0
+cost_matrix_weights_state_diag: [10.0, 10.0, 5.0, 0.0, 0.0, 0.0, 0.0]
+cost_matrix_weights_input_diag: [1.0, 1.0]
+"""
+
+
+def test_port_imports_and_ticks_without_jax(tmp_path):
+    runtime_yaml = tmp_path / "runtime.yaml"
+    runtime_yaml.write_text(RUNTIME_YAML)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run([sys.executable, "-c", SCRIPT.format(root=ROOT)],
+    script = SCRIPT.format(root=ROOT, runtime_yaml=str(runtime_yaml))
+    proc = subprocess.run([sys.executable, "-c", script],
                           capture_output=True, text=True, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok"), proc.stdout
@@ -108,3 +145,24 @@ def test_no_module_of_the_port_imports_jax():
                 for m in mods:
                     assert m.split(".")[0] not in ("jax", "jaxlib", "nmpc_nav_control_tpu"), (
                         f"{path} imports {m}")
+
+
+def test_prepare_and_cli_default_to_the_card(tmp_path):
+    """Without a device argument ``prepare_solvers`` and both subcommands
+    run on the card; on a machine without one they raise rather than carry
+    on on the CPU, with the default and with ``--device cuda``."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default works")
+    from nmpc_nav_control_tpu_torch.__main__ import main
+    from nmpc_nav_control_tpu_torch.runtime import prepare_solvers
+
+    runtime_yaml = tmp_path / "runtime.yaml"
+    runtime_yaml.write_text(RUNTIME_YAML)
+    models = os.path.join(ROOT, "config", "models.yaml")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        prepare_solvers(models, log=lambda *_: None)
+    for argv in (["run", "--config", str(runtime_yaml)],
+                 ["run", "--config", str(runtime_yaml), "--device", "cuda"],
+                 ["prepare", models], ["prepare", models, "--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv)
