@@ -101,7 +101,37 @@ It imports nothing of JAX.  Phases, each printing one line per result:
      the CPU in lock step for 12 ticks on that path, both fed the plant
      driven by the card's commands: the same status at every tick, and the
      largest command gap within the golden suite's f32 command bound
-     (2.5e-2), printed.
+     (2.5e-2), printed;
+ 13. the parallel layers and the demos: (a) BASELINE.json's 4096-scenario
+     mixed-geometry fleet (``parallel.fleet.Fleet``; diff 2048, omni4 1024,
+     tric 1024 lanes, bench.py's controllers, N=40, ``NavConfig()``, the
+     default route), half of each group GoToPose to distinct goals on a
+     ring, half FollowPath on distinct 2 m lines, every robot moving on
+     the pose-goal demo's RK4 plant: 40 ticks eager and 40 graphed, every
+     lane ``solve_ok`` with a finite ``kkt_res``, no ERROR, the graphed
+     chain equal to the eager one bit for bit, each group's capture one
+     tick's launches (8/8/8/8/1) and the replays none; the fleet tick
+     graphed and eager (20 chained ticks, CUDA events), scenario ticks/s,
+     the groups' ticks alone, device time, kernels' share and idle; 8 lanes
+     a group graphed on the card and eager on the CPU in lock step for 12
+     ticks (statuses equal, command gap within 2.5e-2); where there are two
+     cards or more, the fleet on a data mesh over them; (b) a diff QP at
+     N=512, B=256 (the port's model linearized along a seeded trajectory,
+     inputs at their bound on some lanes) solved by ``solve_box_qp(...,
+     stage_parallel=True)`` (no kernel launched) and by the serial Riccati
+     route (kernels 6-8, 8/16/16), both f32 within twice the JAX package's
+     own f32 error of the f64 solve on the card; kernels 6-8 against their
+     plain versions at N=512 (B=256 and 1) with device times; both solves
+     timed at B=256 and 1 through a CUDA graph (eager where the capture
+     fails, said so); ``solve_box_qp_2d`` on a (1, 4) mesh within 1e-6 of
+     the 1-D solve; (c) ``init_distributed`` on NCCL at world size 1, then
+     ``global_data_mesh``, ``local_to_global``, one fleet tick and
+     ``global_to_local`` at 8 lanes a group, equal to the direct tick bit
+     for bit; (d) the demos on the card: ``sim_pose_goal`` for the three
+     geometries at ``--noise 0`` (the final error within 1 mm of the JAX
+     script's) and ``--noise 0.05`` (printed; the median final error over
+     32 noise streams inside the JAX script's range over 32 keys), and
+     ``sim_follow_path`` to IDLE within 3 cm of the path end.
 
 Any failure raises, and the script exits non-zero.  Before the last line it
 prints the kernels as one JSON object (each with its bound: the bytes it
@@ -932,6 +962,585 @@ def _phase_runtime(torch):
     return out
 
 
+# ---- Phase 13: the parallel layers and the simulation demos. ----
+
+FLEET_LANES = {"diff": 2048, "omni4": 1024, "tric": 1024}   # BASELINE.json's 4096 scenarios
+FLEET_TICKS = 40
+SMALL_LANES = 8                  # (a)'s lock step and (c)'s I/O, lanes a group
+LOCKSTEP_CMD_TOL = 2.5e-2        # phase 12 (f)'s command bound
+LONG_N, LONG_B = 512, 256        # (b): mesh2d's "N=512 look-ahead studies"
+DU_MAX_TOL, DU_MEAN_TOL = 2.5e-3, 4e-5   # the golden command bound (ROADMAP section 3)
+# (b)'s QP in f32 through the JAX package's vmapped solve_box_qp (8
+# iterations, stage_parallel=True; on a CPU) against its f64 solve: max and
+# mean |du - du_f64|.  The f32 IPM resolves du near active bounds only to
+# this at N=512, in the JAX package as in the port, so the port is held to
+# twice it (ROADMAP section 3).
+JAX_F32_DU = (6.913029716491659e-03, 2.5286428405063385e-05)
+MESH2D_TOL = 1e-6                # (b): the 2-D solve against the 1-D one, f32
+# (d): the JAX script examples/sim_pose_goal.py on a CPU (f32, N=40, --ticks
+# 600, the goal (1, 0.3, 0.5)): its final position error in m at --noise 0,
+# and (min, median, max) over PRNG keys 0..31 at --noise 0.05 (key 0 is the
+# script's own).
+JAX_POSE_GOAL_NOISE0 = {"diff": 0.023703958306494823, "omni4": 0.013752213482529363,
+                        "tric": 0.008871964685316992}
+JAX_POSE_GOAL_BAND = {"diff": (0.009156, 0.022380, 0.035307),
+                      "omni4": (0.007651, 0.014278, 0.021626),
+                      "tric": (0.002821, 0.011880, 0.023983)}
+NOISE0_TOL = 1e-3                # m: f32 rounding moves the settled point far less
+BAND_LANES = 32                  # noise streams of the port's band
+DEMO_TICKS = 600
+PATH_END = (2.0, 0.3)            # sim_follow_path's path end
+PATH_END_TOL = 0.03              # the demo node's final_position_error
+
+
+def _fleet_lanes(torch, sm, group, dev):
+    """(NodeState, plants [B, nxp]) of a group: the first half GoToPose to
+    distinct goals on a ring of radius 0.5-1.95 m (under NavConfig's 2 m
+    goal limit), each facing outward, robots at the origin; the second half
+    FollowPath on distinct 2 m lines at 0.5 m/s from the origin, each robot
+    at its line's start facing along it (omni4 holding that heading)."""
+    import math
+
+    from nmpc_nav_control_tpu_torch.examples import sim_pose_goal as demo
+    from nmpc_nav_control_tpu_torch.parallel.sharding import tree_map
+    from nmpc_nav_control_tpu_torch.paths import PathSegment, make_line_segment
+
+    B, cap = group.batch, group.cfg.path_capacity
+    half = B // 2
+    k = torch.arange(half, dtype=torch.float64)
+    phi = 2 * math.pi * k / half
+    r = 0.5 + 1.45 * k / max(half - 1, 1)
+    goals = torch.stack([r * torch.cos(phi), r * torch.sin(phi), phi], -1).float()
+    psi = [2 * math.pi * j / (B - half) - math.pi for j in range(B - half)]
+    lines = [make_line_segment((0.0, 0.0), (2 * math.cos(a), 2 * math.sin(a)), velocity=0.5,
+                               theta_holonomic=a, device="cpu") for a in psi]
+    segs = PathSegment(*(torch.cat([torch.stack(x)[:, None],
+                                    torch.zeros((len(x), cap - 1) + x[0].shape, dtype=x[0].dtype)],
+                                   1) for x in zip(*lines)))
+    init = sm.node_init(group.spec, group.cfg, B, torch.float32, "cpu")
+    gtp = sm.on_goal_pose(tree_map(lambda x: x[:half], init), goals)
+    fp = sm.on_path_set(tree_map(lambda x: x[half:], init), group.cfg, segs, 1, 1)
+    state = tree_map(lambda a, b: torch.cat([a, b]), gtp, fp)
+    plants = torch.zeros(B, demo.plant_size(group.spec.geometry))
+    plants[half:, 2] = torch.tensor(psi)
+    return _to(state, dev), plants.to(dev)
+
+
+def _to(x, dev):
+    from nmpc_nav_control_tpu_torch.parallel.sharding import tree_map
+
+    return tree_map(lambda t: t.to(dev), x)
+
+
+def _clone(x):
+    from nmpc_nav_control_tpu_torch.parallel.sharding import tree_map
+
+    return tree_map(lambda t: t.clone(), x)
+
+
+def _fleet_meas(torch, sm, geometry, plants, p):
+    """The measurements a group's controllers read from its plants."""
+    from nmpc_nav_control_tpu_torch.examples import sim_pose_goal as demo
+
+    pose, vel, steer = demo.measure(geometry, plants, p)
+    flag = torch.ones(plants.shape[0], dtype=torch.bool, device=plants.device)
+    return sm.Measurements(pose, vel, steer, flag, flag, flag)
+
+
+def _fleet_advance(torch, geometry, plants, out, p):
+    """Plants one step on: each follows its published command (zero where
+    none is published), noise-free."""
+    from nmpc_nav_control_tpu_torch.examples import sim_pose_goal as demo
+
+    refs = demo.references(geometry, out.cmd, p)
+    refs = torch.where(out.publish_cmd[:, None], refs, 0.0)
+    return demo.plant_step(geometry, plants, refs, p.to(plants.device))
+
+
+def _fleet_check(torch, sm, what, states, outs):
+    """Every lane solve_ok with a finite kkt_res at every tick, no ERROR."""
+    for t, (st, out) in enumerate(zip(states, outs)):
+        bad = int((~out.solve_ok).sum()) + int((~torch.isfinite(out.kkt_res)).sum())
+        if bad or bool((st.status == sm.ERROR).any()):
+            raise AssertionError(f"{what} tick {t}: {bad} lanes not solve_ok or non-finite, "
+                                 f"statuses {sorted(set(st.status.tolist()))}")
+
+
+def _fleet_run(torch, sm, groups, fleet, ticks, dev):
+    """``ticks`` moving ticks of a fleet (graphed where ``fleet`` is given,
+    else eager ``node_tick``): per group the (state, outputs) of every tick,
+    cloned, and the last measurements."""
+    runs = {g: [] for g in groups}
+    lanes = {g: _fleet_lanes(torch, sm, grp, dev) for g, grp in groups.items()}
+    states = {g: s for g, (s, _) in lanes.items()}
+    plants = {g: pl for g, (_, pl) in lanes.items()}
+    if fleet is not None:
+        for g, s in states.items():
+            fleet.set_states(g, s)
+    for _ in range(ticks):
+        meas = {g: _fleet_meas(torch, sm, g, plants[g], grp.data.p) for g, grp in groups.items()}
+        if fleet is not None:
+            outs = fleet.tick(meas)
+            news = fleet.states
+        else:
+            outs, news = {}, {}
+            for g, grp in groups.items():
+                news[g], outs[g] = sm.node_tick(grp.spec, grp.data, grp.cfg, states[g], meas[g])
+            states = news
+        for g, grp in groups.items():
+            runs[g].append((_clone(news[g]), _clone(outs[g])))
+            plants[g] = _fleet_advance(torch, g, plants[g], outs[g], grp.data.p)
+    return runs, meas, plants
+
+
+def _fleet_groups(torch, lanes, dev):
+    from nmpc_nav_control_tpu_torch.control import state_machine as sm
+    from nmpc_nav_control_tpu_torch.parallel.fleet import FleetGroup
+
+    return {g: FleetGroup(*_controller(torch, dev, geometry=g), cfg=sm.NavConfig(), batch=n)
+            for g, n in lanes.items()}
+
+
+def _phase_fleet(torch, dev):
+    """Phase 13 (a): the 4096-lane mixed-geometry fleet, moving, graphed
+    against eager, timed; 8 lanes a group on the card and the CPU in lock
+    step; on a mesh of real cards where there are two or more."""
+    from nmpc_nav_control_tpu_torch.control import state_machine as sm
+    from nmpc_nav_control_tpu_torch.control.graph import WARMUP_TICKS
+    from nmpc_nav_control_tpu_torch.ops import _build
+    from nmpc_nav_control_tpu_torch.parallel import gather, make_mesh
+    from nmpc_nav_control_tpu_torch.parallel.fleet import Fleet
+
+    out, t0 = {}, time.perf_counter()
+    groups = _fleet_groups(torch, FLEET_LANES, dev)
+    fleet = Fleet(groups)
+    # Eager chain first, counted: 40 ticks x three groups x one tick's launches.
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    eager, _, _ = _fleet_run(torch, sm, groups, None, FLEET_TICKS, dev)
+    eager_counts = _build.launch_counts()
+    want = {k: v * FLEET_TICKS * len(groups) for k, v in PER_TICK.items()}
+    if eager_counts != want:
+        raise AssertionError(f"phase 13 fleet eager: launches {eager_counts}, expected {want}")
+    # Graphed chain: the first tick captures each group after its warm-up
+    # ticks, each launching one tick's kernels; the replays launch nothing,
+    # so the chain counts (warm-ups + 1) x three groups x one tick.
+    _build.reset_launch_counts()
+    graphed, meas, _ = _fleet_run(torch, sm, groups, fleet, FLEET_TICKS, dev)
+    counts = _build.launch_counts()
+    captures = {g: navs[0].capture_launches for g, navs in fleet.navigators.items()}
+    want = {k: v * (WARMUP_TICKS + 1) * len(groups) for k, v in PER_TICK.items()}
+    if any(c != PER_TICK for c in captures.values()) or counts != want:
+        raise AssertionError(f"phase 13 fleet: launches at capture {captures}, in the chain "
+                             f"{counts}; expected {PER_TICK} a capture, {want} in all")
+    for g in groups:
+        _fleet_check(torch, sm, f"phase 13 fleet {g} eager", *zip(*eager[g]))
+        _fleet_check(torch, sm, f"phase 13 fleet {g} graphed", *zip(*graphed[g]))
+        got, ref = _leaves(graphed[g][-1]), _leaves(eager[g][-1])
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            gap = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, ref))
+            raise AssertionError(f"phase 13 fleet {g}: graphed chain departs from the eager "
+                                 f"one by {gap:.3e}")
+    moved = {g: float(gather(graphed[g][-1][1].cmd.v).abs().max()) for g in groups}
+    statuses = {g: sorted(set(graphed[g][-1][0].status.tolist())) for g in groups}
+
+    # Timing: 20 chained fleet ticks graphed and eager, each group alone.
+    states = {g: graphed[g][-1][0] for g in groups}
+    graphed_ms = _time_ms(torch, lambda: fleet.tick(meas))
+
+    def eager_tick():
+        for g, grp in groups.items():
+            states[g], _ = sm.node_tick(grp.spec, grp.data, grp.cfg, states[g], meas[g])
+
+    eager_ms = _time_ms(torch, eager_tick)
+    alone = {g: _time_ms(torch, navs[0].step) for g, navs in fleet.navigators.items()}
+    split = _tick_breakdown(torch, lambda: fleet.tick(meas))
+    lanes = sum(FLEET_LANES.values())
+    share = ("device not measured" if split is None else
+             f"device {split[0]:.3f} ms/tick (idle {100 * (1 - split[0] / graphed_ms):.1f}%), "
+             f"port kernels {split[1]:.3f} ms ({100 * split[1] / graphed_ms:.1f}% of the tick)")
+    print(f"phase 13 fleet diff {FLEET_LANES['diff']} + omni4 {FLEET_LANES['omni4']} + tric "
+          f"{FLEET_LANES['tric']}, N={N}, moving: {FLEET_TICKS} ticks graphed and eager, every "
+          f"lane solve_ok and finite kkt_res, no ERROR, last statuses {statuses}, max |v| "
+          f"{moved}; launches at capture {captures}, replays none, eager {FLEET_TICKS} x 3 "
+          f"groups x one tick; graphed = eager bit for bit")
+    print(f"phase 13 fleet tick: {graphed_ms:.3f} ms graphed ({eager_ms:.3f} eager), "
+          f"{lanes / graphed_ms * 1e3:.0f} scenario ticks/s graphed; groups alone "
+          + ", ".join(f"{g} {ms:.3f}" for g, ms in alone.items())
+          + f" ms, sum {sum(alone.values()):.3f} ms; {share}")
+    out.update(graphed_ms=graphed_ms, eager_ms=eager_ms, alone_ms=alone,
+               scenario_ticks_per_s=lanes / graphed_ms * 1e3, launches=captures,
+               device_ms=None if split is None else split[0],
+               kernel_ms=None if split is None else split[1],
+               kernels=None if split is None else {k: v[0] for k, v in split[2].items()})
+    out["lockstep"] = _fleet_lockstep(torch, sm, dev)
+    if torch.cuda.device_count() >= 2:
+        out["mesh"] = _fleet_on_cards(torch, sm, dev, make_mesh)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _fleet_lockstep(torch, sm, dev):
+    """8 lanes a group, graphed on the card and eager on the CPU, 12 ticks:
+    one set of plants on the CPU, driven by the card's commands, feeds both."""
+    from nmpc_nav_control_tpu_torch.parallel.fleet import Fleet
+
+    small = {g: SMALL_LANES for g in FLEET_LANES}
+    fleets = {where: Fleet(_fleet_groups(torch, small, d)) for where, d in
+              (("card", dev), ("cpu", "cpu"))}
+    plants = {}
+    for g, grp in fleets["cpu"].groups.items():
+        state, plants[g] = _fleet_lanes(torch, sm, grp, "cpu")
+        for f in fleets.values():
+            f.set_states(g, state)
+    gap = 0.0
+    for k in range(LOCKSTEP_TICKS):
+        meas = {g: _fleet_meas(torch, sm, g, plants[g], grp.data.p)
+                for g, grp in fleets["cpu"].groups.items()}
+        card = fleets["card"].tick({g: _to(m, dev) for g, m in meas.items()})
+        cpu = fleets["cpu"].tick(meas)
+        for g in meas:
+            oc, oh = _to(card[g], "cpu"), cpu[g]
+            if not torch.equal(oc.status_code, oh.status_code) or not torch.equal(
+                    oc.publish_cmd, oh.publish_cmd):
+                raise AssertionError(f"phase 13 lock step {g} tick {k}: statuses "
+                                     f"{oc.status_code.tolist()} (card), "
+                                     f"{oh.status_code.tolist()} (CPU)")
+            gap = max(gap, max(float((a - b).abs().max()) for a, b in zip(oc.cmd, oh.cmd)))
+            plants[g] = _fleet_advance(torch, g, plants[g], oc, fleets["cpu"].groups[g].data.p)
+    if not gap <= LOCKSTEP_CMD_TOL:
+        raise AssertionError(f"phase 13 lock step: max |cmd_card - cmd_cpu| {gap:.3e}")
+    print(f"phase 13 fleet lock step, {SMALL_LANES} lanes a group, card (graphed) and CPU "
+          f"(eager): {LOCKSTEP_TICKS} ticks with the same statuses, max |cmd_card - cmd_cpu| "
+          f"{gap:.3e} (bound {LOCKSTEP_CMD_TOL:.1e})")
+    return dict(ticks=LOCKSTEP_TICKS, max_cmd_gap=gap)
+
+
+def _fleet_on_cards(torch, sm, dev, make_mesh):
+    """Where there are two cards or more: 8 lanes a group on a data mesh over
+    every card against the same lanes on one card, 3 ticks."""
+    from nmpc_nav_control_tpu_torch.parallel import gather
+    from nmpc_nav_control_tpu_torch.parallel.fleet import Fleet
+
+    small = {g: SMALL_LANES for g in FLEET_LANES}
+    one = _fleet_run(torch, sm, _fleet_groups(torch, small, dev),
+                     Fleet(_fleet_groups(torch, small, dev)), 3, dev)[0]
+    groups = _fleet_groups(torch, small, dev)
+    many = _fleet_run(torch, sm, groups, Fleet(groups, mesh=make_mesh()), 3, dev)[0]
+    gap = 0.0
+    for g in groups:
+        for (s1, o1), (s2, o2) in zip(one[g], many[g]):
+            o2 = gather(o2, dev)
+            if not torch.equal(o1.status_code, o2.status_code):
+                raise AssertionError(f"phase 13 fleet on {torch.cuda.device_count()} cards "
+                                     f"{g}: statuses differ from one card")
+            gap = max(gap, max(float((a - b).abs().max()) for a, b in zip(o1.cmd, o2.cmd)))
+    if not gap <= LOCKSTEP_CMD_TOL:
+        raise AssertionError(f"phase 13 fleet on cards: max |cmd gap| {gap:.3e}")
+    print(f"phase 13 fleet on a data mesh over {torch.cuda.device_count()} cards: statuses "
+          f"equal to one card's, max |cmd gap| {gap:.3e}")
+    return dict(cards=torch.cuda.device_count(), max_cmd_gap=gap)
+
+
+def _long_qp(torch, dev, dtype, B, N, seed=512):
+    """A diff box QP at a long horizon: the port's diff model (bench.py's
+    dist_b and tau_v) linearized by RK4 and forward sensitivities along a
+    seeded trajectory (slow random wheel-acceleration references, the
+    states perturbed by 1e-3 so the dynamics carry residuals), bench.py's Q
+    and R diagonals, seeded gradients (large enough that inputs reach
+    their bound on most lanes); the wheel-reference and input bounds of
+    its controller in delta form."""
+    from torch.func import jacfwd, vmap
+
+    from nmpc_nav_control_tpu_torch.models import diff
+    from nmpc_nav_control_tpu_torch.ocp.integrator import make_discrete_dynamics
+    from nmpc_nav_control_tpu_torch.qp import BoxQP
+
+    f64 = torch.float64
+    rng = np.random.default_rng(seed)
+    p = torch.tensor([0.27, 0.1], dtype=f64)
+    F = make_discrete_dynamics(diff.f, 1.0 / 40.0)
+    step = vmap(lambda x, u: F(x, u, p))
+    t = np.arange(N) / 40.0
+    us = torch.tensor(0.5 * np.sin(rng.uniform(2.0, 8.0, (B, 1, 2)) * t[None, :, None]
+                                   + rng.uniform(0, 2 * np.pi, (B, 1, 2))), dtype=f64)
+    xs = [torch.tensor(rng.normal(size=(B, 7)) * 0.1, dtype=f64)]
+    for k in range(N):
+        xs.append(step(xs[-1], us[:, k]))
+    xs = torch.stack(xs, 1) + torch.tensor(rng.normal(size=(B, N + 1, 7)) * 1e-3, dtype=f64)
+    X, U = xs[:, :-1].reshape(-1, 7), us.reshape(-1, 2)
+    A, Bm = vmap(jacfwd(lambda x, u: F(x, u, p), argnums=(0, 1)))(X, U)
+    c = step(X, U).reshape(B, N, 7) - xs[:, 1:]
+    q = torch.tensor([10.0, 10.0, 5.0, 0, 0, 0, 0], dtype=f64)
+    qu = torch.tensor(rng.normal(size=(B, N, 2)), dtype=f64)
+    ref_x = xs[:, 1:, 5:7]
+    qp = BoxQP(A=A.reshape(B, N, 7, 7), B=Bm.reshape(B, N, 7, 2), c=c,
+               Qd=q.expand(B, N + 1, 7).clone(),
+               qx=q * torch.tensor(rng.normal(size=(B, N + 1, 7)) * 0.1, dtype=f64),
+               Rd=torch.ones(B, N, 2, dtype=f64), qu=qu,
+               dx0=torch.tensor(rng.normal(size=(B, 7)) * 0.01, dtype=f64),
+               lbx=-1.0 - ref_x, ubx=1.0 - ref_x, lbu=-2.0 - us, ubu=2.0 - us)
+    return BoxQP(*(x.to(dev, dtype).contiguous() for x in qp)), (us.to(dev, dtype), (5, 6), (0, 1))
+
+
+def _top_kernels(torch, fn, n=3):
+    """(device ms per call of ``fn``, [(kernel, ms per call, share)] of the
+    ``n`` costliest) from one traced call; None where the trace shows no
+    device time."""
+    rows = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1000.0)
+            for e in _profile(torch, fn, 1)]
+    total = sum(ms for _, ms in rows)
+    if total <= 0:
+        return None
+    top = sorted(rows, key=lambda r: -r[1])[:n]
+    return total, [(k[:60], ms, ms / total) for k, ms in top]
+
+
+def _solve_ms(torch, solve, what, reps=5):
+    """(ms per solve from ``reps`` chained replays of a CUDA graph of
+    ``solve``, "graphed", the replay), or, where the capture fails, as many
+    eager calls, the reason and ``solve``."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(2):
+            solve()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            solve()
+    except RuntimeError as e:                    # timed eager instead, and said so
+        torch.cuda.synchronize()
+        reason = str(e).splitlines()[0][:160]
+        print(f"phase 13 {what}: the capture failed ({reason}); timed eager")
+        return _time_ms(torch, solve, reps), f"eager ({reason})", solve
+    return _time_ms(torch, graph.replay, reps), "graphed", graph.replay
+
+
+def _phase_long_horizon(torch, dev, kernels):
+    """Phase 13 (b): the N=512 stage-parallel solve against the serial
+    Riccati route (kernels 6-8) and the f64 referee; kernels 6-8 against
+    their plain versions at N=512; the 2-D mesh solve."""
+    from nmpc_nav_control_tpu_torch.ops import _build
+    from nmpc_nav_control_tpu_torch.ops import riccati_fused as rf
+    from nmpc_nav_control_tpu_torch.parallel import make_mesh, solve_box_qp_2d
+    from nmpc_nav_control_tpu_torch.qp import solve_box_qp
+    from torch_sweep_inputs import random_riccati_inputs
+
+    out, t0 = {}, time.perf_counter()
+    qp, (us, ibx, ibu) = _long_qp(torch, dev, torch.float32, LONG_B, LONG_N)
+    qp64 = _long_qp(torch, dev, torch.float64, LONG_B, LONG_N)[0]
+    du_max, du_mean = 2 * JAX_F32_DU[0], 2 * JAX_F32_DU[1]
+    iters = 8
+
+    def sp(q=qp):
+        return solve_box_qp(q, ibx, ibu, iters=iters, stage_parallel=True)
+
+    def serial(q=qp):
+        return solve_box_qp(q, ibx, ibu, iters=iters, tiled=False)
+
+    # Kernels 6-8 at N=512 against their plain versions (phase 6's bounds).
+    out["kernels_N512"] = {}
+    for lanes in (LONG_B, 1):
+        x = random_riccati_inputs(7, 2, LONG_N, lanes, seed=LONG_N + lanes)
+        for name, (kern, plain, args, outs) in _riccati_calls(torch, rf, x, dev).items():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            abs_err, excess = 0.0, 0.0
+            for o, g, r in zip(outs, _leaves(tuple(got)), _leaves(tuple(want))):
+                e = _placed_errors(torch, g, r, *RICCATI_TOL[o])
+                abs_err, excess = max(abs_err, e[0]), max(excess, e[1])
+            if not excess <= 1.0:
+                raise AssertionError(f"phase 13 {name} (7,2) N={LONG_N} B={lanes}: kernel "
+                                     "disagrees with plain version")
+            kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], abs_err)
+            ms = _time_ms(torch, kern)
+            try:
+                dev_ms = _device_ms(torch, kern)
+            except RuntimeError:                 # no device time in the traces
+                dev_ms = None
+            print(f"phase 13 {name} (7,2) N={LONG_N} B={lanes}: max abs err {abs_err:.3e}, "
+                  f"worst err/(atol+rtol|ref|) {excess:.3f}, {ms:.4f} ms a call (CUDA events), "
+                  f"device {'not measured' if dev_ms is None else f'{dev_ms} ms'}")
+            out["kernels_N512"][f"{name}/{lanes}"] = dict(ms=ms, device_ms=dev_ms,
+                                                          max_abs_err=abs_err)
+
+    ref = solve_box_qp(qp64, ibx, ibu, iters=iters, tiled=False)
+    active = int(((ref.dus + us.double()).abs() > 2.0 - 1e-3).any(-1).any(-1).sum())
+    for name, fn, want in (("stage-parallel", sp, {}), ("serial Riccati", serial,
+                                                       RICCATI_PER_TICK)):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        sol = fn()
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        du = (sol.dus.double() - ref.dus).abs()
+        ok = bool(torch.isfinite(sol.dus).all()) and bool(torch.isfinite(sol.kkt_res).all())
+        print(f"phase 13 N={LONG_N} B={LONG_B} diff QP, {name} f32: launches {counts}, "
+              f"max |du - du_f64| {float(du.max()):.3e}, mean {float(du.mean()):.3e} (golden "
+              f"{DU_MAX_TOL:.1e}, {DU_MEAN_TOL:.1e}; twice JAX's f32 {du_max:.3e}, "
+              f"{du_mean:.3e}), max kkt_res {float(sol.kkt_res.max()):.3e},"
+              f" max mu {float(sol.mu.max()):.3e}; {active} lanes hold an input at its bound")
+        if counts != want or not ok:
+            raise AssertionError(f"phase 13 {name}: launches {counts} (expected {want}), "
+                                 f"finite {ok}")
+        if not (float(du.max()) <= du_max and float(du.mean()) <= du_mean):
+            raise AssertionError(f"phase 13 {name}: outside twice JAX's f32 error")
+        out[name] = dict(max_du=float(du.max()), mean_du=float(du.mean()), launches=counts)
+        if name == "stage-parallel":
+            one_d = sol
+    if active == 0:
+        raise AssertionError("phase 13: no lane holds an input bound")
+
+    # Both f32 solves timed at B=256 and B=1.
+    out["ms"] = {}
+    for lanes in (LONG_B, 1):
+        q = type(qp)(*(x[:lanes].clone() for x in qp))
+        for name, fn in (("stage-parallel", sp), ("serial Riccati", serial)):
+            ms, how, run = _solve_ms(torch, lambda fn=fn, q=q: fn(q), f"{name} B={lanes}")
+            top = _top_kernels(torch, run)
+            where = ("device not measured" if top is None else
+                     f"device {top[0]:.3f} ms, costliest kernels " + "; ".join(
+                         f"{k} {ms_k:.3f} ms ({100 * share:.1f}%)" for k, ms_k, share in top[1]))
+            print(f"phase 13 {name} N={LONG_N} B={lanes}: {ms:.3f} ms a solve ({how}, "
+                  f"{iters} IPM iterations); {where}")
+            out["ms"][f"{name}/{lanes}"] = dict(ms=ms, how=how, top=top)
+
+    # The 2-D mesh: the one card named four times, or four cards.
+    cards = torch.cuda.device_count()
+    devices = [torch.device("cuda", i) for i in range(4)] if cards >= 4 else [dev] * 4
+    mesh = make_mesh((1, 4), ("data", "stage"), devices=devices)
+    two_d = solve_box_qp_2d(qp, ibx, ibu, mesh, iters=iters).gather(dev)
+    gap = max(float((a - b).abs().max()) for a, b in ((two_d.dxs, one_d.dxs),
+                                                      (two_d.dus, one_d.dus)))
+    print(f"phase 13 solve_box_qp_2d on a (1, 4) mesh of {'four cards' if cards >= 4 else dev}: "
+          f"max |2-D - 1-D| {gap:.3e} over dxs and dus (bound {MESH2D_TOL:.0e})")
+    if not gap <= MESH2D_TOL:
+        raise AssertionError(f"phase 13: the 2-D solve departs from the 1-D one by {gap:.3e}")
+    out.update(mesh2d_gap=gap, seconds=time.perf_counter() - t0)
+    return out
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _phase_multihost(torch, dev):
+    """Phase 13 (c): ``init_distributed`` on NCCL at world size 1, then the
+    fleet's multi-process I/O against the direct tick, bit for bit."""
+    import torch.distributed as dist
+
+    from nmpc_nav_control_tpu_torch.control import state_machine as sm
+    from nmpc_nav_control_tpu_torch.parallel import (
+        global_data_mesh,
+        global_to_local,
+        init_distributed,
+        local_to_global,
+    )
+    from nmpc_nav_control_tpu_torch.parallel.fleet import Fleet
+
+    t0 = time.perf_counter()
+    init_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        backend = dist.get_backend()
+        if backend != "nccl":
+            raise AssertionError(f"phase 13 multihost: backend {backend}")
+        mesh = global_data_mesh()
+        small = {g: SMALL_LANES for g in FLEET_LANES}
+        direct = Fleet(_fleet_groups(torch, small, dev))
+        io = Fleet(_fleet_groups(torch, small, dev), mesh=mesh)
+        same = True
+        for g, grp in direct.groups.items():
+            state, plants = _fleet_lanes(torch, sm, grp, dev)
+            direct.set_states(g, state)
+            io.set_states(g, local_to_global(mesh, state))
+            meas = _fleet_meas(torch, sm, g, plants, grp.data.p)
+            want = direct.tick({g: meas})[g]
+            host = sm.Measurements(*(x.cpu().numpy() for x in meas))
+            got = global_to_local(io.tick({g: local_to_global(mesh, host)})[g])
+            same &= all(np.array_equal(a, b.cpu().numpy())
+                        for a, b in zip(_leaves(got), _leaves(want)))
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 13 multihost: init_distributed on {backend} at world size 1, "
+          f"global_data_mesh {mesh}, local_to_global -> fleet tick -> global_to_local at "
+          f"{SMALL_LANES} lanes a group: {'equal' if same else 'NOT equal'} to the direct tick "
+          f"bit for bit; process group destroyed")
+    if not same:
+        raise AssertionError("phase 13 multihost: the I/O path departs from the direct tick")
+    return dict(backend=backend, seconds=time.perf_counter() - t0)
+
+
+def _pose_goal_band(torch, geometry, dev):
+    """Final position errors [BAND_LANES] of the pose-goal demo's closed
+    loop (its controller, plant and kinematics) at --noise 0.05 for
+    DEMO_TICKS ticks, one noise stream a lane, graphed on the card."""
+    from nmpc_nav_control_tpu_torch.control import GraphedController
+    from nmpc_nav_control_tpu_torch.examples import sim_pose_goal as demo
+
+    B = BAND_LANES
+    spec, data = demo.build(geometry, torch.float32, demo.N, dev)
+    ctrl = GraphedController(spec, data, B)
+    traj = torch.zeros(B, demo.N + 1, 3, device=dev)
+    traj[:, 0] = torch.tensor([1.0, 0.3, 0.5])
+    n_valid = torch.ones(B, dtype=torch.long, device=dev)
+    gen = torch.Generator().manual_seed(1)
+    plant = torch.zeros(B, demo.plant_size(geometry), device=dev)
+    for _ in range(DEMO_TICKS):
+        pose, vel, steer = demo.measure(geometry, plant, data.p)
+        cmd = ctrl.step(pose, vel, traj, n_valid, steer)[1]
+        refs = demo.references(geometry, cmd, data.p)
+        noise = torch.randn(refs.shape, generator=gen).to(dev)
+        plant = demo.plant_step(geometry, plant, refs + 0.05 * noise, data.p)
+    return torch.hypot(plant[:, 0] - 1.0, plant[:, 1] - 0.3).cpu()
+
+
+def _phase_demos(torch, dev):
+    """Phase 13 (d): the simulation demos on the card."""
+    from nmpc_nav_control_tpu_torch.examples import sim_follow_path, sim_pose_goal
+
+    out, t0 = {}, time.perf_counter()
+    for g in ("diff", "omni4", "tric"):
+        runs = {}
+        for noise in ("0", "0.05"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                runs[noise] = sim_pose_goal.main([g, "--noise", noise, "--ticks",
+                                                  str(DEMO_TICKS)])
+        band = _pose_goal_band(torch, g, dev)
+        lo, mid, hi = JAX_POSE_GOAL_BAND[g]
+        gap0 = abs(runs["0"]["final_error"] - JAX_POSE_GOAL_NOISE0[g])
+        median = float(band.median())
+        print(f"phase 13 sim_pose_goal {g} --ticks {DEMO_TICKS} on the card: final position error "
+              f"{runs['0']['final_error'] * 100:.4f} cm at --noise 0 (the JAX script's "
+              f"{JAX_POSE_GOAL_NOISE0[g] * 100:.4f} cm), {runs['0.05']['final_error'] * 100:.2f} "
+              f"cm at --noise 0.05 --seed 0; over {BAND_LANES} noise streams min / median / max "
+              f"{float(band.min()) * 100:.2f} / {median * 100:.2f} / {float(band.max()) * 100:.2f}"
+              f" cm (the JAX script over 32 keys {lo * 100:.2f} / {mid * 100:.2f} / "
+              f"{hi * 100:.2f} cm)")
+        if not (gap0 <= NOISE0_TOL and lo <= median <= hi):
+            raise AssertionError(f"phase 13 sim_pose_goal {g}: outside the JAX script's outcome")
+        out[g] = dict(noise0=runs["0"]["final_error"], noise=runs["0.05"]["final_error"],
+                      band=band.tolist())
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        r = sim_follow_path.main([])
+    dist_end = float(np.hypot(r["plant"][0] - PATH_END[0], r["plant"][1] - PATH_END[1]))
+    print(f"phase 13 sim_follow_path on the card: IDLE at tick {r['finished']}, final pos "
+          f"({r['plant'][0]:.3f}, {r['plant'][1]:.3f}), {dist_end * 100:.2f} cm from the path "
+          f"end; node tick p50 {r['stats']['p50_ms']:.3f} ms, p99 {r['stats']['p99_ms']:.3f} ms")
+    if r["finished"] is None or not dist_end <= PATH_END_TOL:
+        raise AssertionError("phase 13 sim_follow_path: the robot did not reach the path end")
+    out.update(follow_path=dict(finished=r["finished"], dist_end=dist_end),
+               seconds=time.perf_counter() - t0)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1295,6 +1904,17 @@ def main() -> int:
 
     # ---- Phase 12: the host runtime and the command line at N=80. ----
     record["runtime"] = _phase_runtime(torch)
+
+    # ---- Phase 13: the parallel layers and the simulation demos. ----
+    _set_route("1")
+    t13 = time.perf_counter()
+    record["fleet"] = _phase_fleet(torch, dev)
+    record["long_horizon"] = _phase_long_horizon(torch, dev, kernels)
+    record["multihost"] = _phase_multihost(torch, dev)
+    record["demos"] = _phase_demos(torch, dev)
+    print(f"phase 13: {time.perf_counter() - t13:.1f} s (fleet {record['fleet']['seconds']:.1f}, "
+          f"N={LONG_N} {record['long_horizon']['seconds']:.1f}, multihost "
+          f"{record['multihost']['seconds']:.1f}, demos {record['demos']['seconds']:.1f})")
 
     elapsed = time.perf_counter() - t_start
     print(f"chip_smoke: all phases passed in {elapsed:.1f} s")

@@ -24,8 +24,13 @@ batch (every leaf with a leading batch axis):
 package's, it reads ``NMPC_TPU_TILED_IPM`` at call time (``tiled_ipm_ok``:
 "1", the default, takes the fused sweeps) unless its caller passes the
 route it has already read, as ``rti_step`` does so that its linearization
-pattern and its solve follow one reading.  The JAX package's other
-conditions (a TPU, whole 1024-lane tiles reached by edge padding) have no
+pattern and its solve follow one reading.  ``stage_parallel=True`` takes
+the Riccati solve's iteration whatever the route says, as the JAX
+package's does, with each Newton solve through the log-depth
+associative-scan LQR (``qp/parallel_riccati.py::plqr_solve``) in place of
+the factorization and the two Riccati sweeps: it launches no kernel.  The
+JAX package's other conditions (a TPU, whole 1024-lane tiles reached by
+edge padding) have no
 counterpart: either solve takes any batch size, B=1 included, with no
 padding.  It also chooses, once per solve, between the CUDA kernels and
 their plain versions (``kernel_impl``): f32 on the card takes the kernels,
@@ -39,6 +44,7 @@ from typing import NamedTuple
 import torch
 
 from nmpc_nav_control_tpu_torch.ops import riccati_fused as rf
+from nmpc_nav_control_tpu_torch.qp.parallel_riccati import plqr_solve
 from nmpc_nav_control_tpu_torch.utils.index import sel
 
 __all__ = ["BoxQP", "IPMSolution", "kernel_impl", "solve_box_qp", "solve_box_qp_serial",
@@ -119,7 +125,7 @@ def kernel_impl(dtype, device) -> str:
 def solve_box_qp(qp: BoxQP, idxbx, idxbu, iters: int = 12, tau: float = 0.995,
                  mu0: float = 1.0, s_min: float = 0.3, reg: float = 1e-8,
                  mu_min: float | None = None, spars=None, packed_abc=None,
-                 tiled: bool | None = None) -> IPMSolution:
+                 tiled: bool | None = None, stage_parallel: bool = False) -> IPMSolution:
     """Solve a batch of stagewise box QPs (leaves [B, ...]).
 
     ``tiled``: the route, True for the fused sweeps and False for the
@@ -130,9 +136,15 @@ def solve_box_qp(qp: BoxQP, idxbx, idxbu, iters: int = 12, tau: float = 0.995,
     optional batch-minor (A, Bm, c) already packed for the route (to
     ``spars`` for the fused sweeps, dense for the Riccati solve); ``qp.A/B/c``
     are then ignored.  The kernels run where ``kernel_impl`` says (f32 on
-    the card), the plain versions elsewhere.  Returns an ``IPMSolution``
-    with leading batch axes.
+    the card), the plain versions elsewhere.  ``stage_parallel``: every
+    Newton solve through ``plqr_solve`` on the Riccati solve's iteration,
+    whatever ``tiled`` says (``packed_abc`` then dense).  Returns an
+    ``IPMSolution`` with leading batch axes.
     """
+    if stage_parallel:
+        return solve_box_qp_serial(qp, idxbx, idxbu, iters=iters, tau=tau, mu0=mu0,
+                                   s_min=s_min, reg=reg, mu_min=mu_min, packed_abc=packed_abc,
+                                   stage_parallel=True)
     if tiled is None:
         tiled = tiled_ipm_ok()
     impl = kernel_impl(qp.Qd.dtype, qp.Qd.device)
@@ -155,7 +167,8 @@ def _per_lane_finite(x):
 def solve_box_qp_serial(qp: BoxQP, idxbx, idxbu, iters: int = 12, tau: float = 0.995,
                         mu0: float = 1.0, s_min: float = 0.3, reg: float = 1e-8,
                         mu_min: float | None = None, packed_abc=None,
-                        impl: str = "kernel") -> IPMSolution:
+                        impl: str = "kernel", stage_parallel: bool = False,
+                        stage_devices=None) -> IPMSolution:
     """The Riccati-based solve of the JAX package's serial path, batched.
 
     ``qp`` leaves carry a leading batch axis [B, ...].  ``packed_abc``:
@@ -164,7 +177,10 @@ def solve_box_qp_serial(qp: BoxQP, idxbx, idxbu, iters: int = 12, tau: float = 0
     writes exactly this); ``qp.A/B/c`` are then ignored.  Every per-stage
     tensor stays batch-minor [rows, e, B] for the whole solve, so A and B
     are transposed at most once.  ``impl`` goes to the Riccati wrappers
-    (``ops.riccati_fused``).
+    (``ops.riccati_fused``).  ``stage_parallel``: no factorization, and each
+    Newton solve is ``plqr_solve`` on batch-leading views of the same
+    tensors (its stage blocks on ``stage_devices``, None: one block here),
+    as the JAX package's ``stage_parallel`` changes its serial solve.
     """
     B, Np1, nx = qp.Qd.shape
     ibx, ibu = sel(idxbx, qp.Qd.device), sel(idxbu, qp.Qd.device)
@@ -177,6 +193,7 @@ def solve_box_qp_serial(qp: BoxQP, idxbx, idxbu, iters: int = 12, tau: float = 0
         packed_abc = (rf.to_bm(qp.A), rf.to_bm(qp.B), rf.to_bm(qp.c))
     A, Bm, c = packed_abc
     A4, B4 = A.view(N, nx, nx, B), Bm.view(N, nx, nu, B)
+    A_lead, B_lead = A4.permute(3, 0, 1, 2), B4.permute(3, 0, 1, 2)
     Qd, qx, Rd, qu = map(rf.to_bm, (qp.Qd, qp.qx, qp.Rd, qp.qu))
     lbx, ubx, lbu, ubu = map(rf.to_bm, (qp.lbx, qp.ubx, qp.lbu, qp.ubu))
     dx0 = qp.dx0.mT.contiguous()                                  # [nx, B]
@@ -214,7 +231,8 @@ def solve_box_qp_serial(qp: BoxQP, idxbx, idxbu, iters: int = 12, tau: float = 0
         Qbar[1:, ibx] += torch.clamp(lam[0] / s[0] + lam[1] / s[1], max=d_cap)
         Rbar = Rd + reg
         Rbar[:, ibu] += torch.clamp(lam[2] / s[2] + lam[3] / s[3], max=d_cap)
-        fac = rf.riccati_factor_fused(A, Bm, Qbar, Rbar, impl=impl)
+        if not stage_parallel:
+            fac = rf.riccati_factor_fused(A, Bm, Qbar, Rbar, impl=impl)
 
         r_dyn = (torch.einsum("kijb,kjb->kib", A4, it.dxs[:-1])
                  + torch.einsum("kijb,kjb->kib", B4, it.dus) + c - it.dxs[1:]).contiguous()
@@ -232,9 +250,16 @@ def solve_box_qp_serial(qp: BoxQP, idxbx, idxbu, iters: int = 12, tau: float = 0
             gx[1:, ibx] += le[1] - le[0]
             gu = Rd * it.dus + qu
             gu[:, ibu] += le[3] - le[2]
-            kff = rf.riccati_solve_bwd_fused(A, Bm, fac.Ks, fac.Ls, fac.Ps, gx, gu, r_dyn,
-                                             impl=impl)
-            ddxs, ddus = rf.riccati_solve_fwd_fused(A, Bm, fac.Ks, kff, r_dyn, r_init, impl=impl)
+            if stage_parallel:
+                ddxs, ddus = plqr_solve(A_lead, B_lead,
+                                        *(x.permute(2, 0, 1) for x in (Qbar, Rbar, gx, gu, r_dyn)),
+                                        r_init.mT, stage_devices=stage_devices)
+                ddxs, ddus = ddxs.permute(1, 2, 0), ddus.permute(1, 2, 0)
+            else:
+                kff = rf.riccati_solve_bwd_fused(A, Bm, fac.Ks, fac.Ls, fac.Ps, gx, gu, r_dyn,
+                                                 impl=impl)
+                ddxs, ddus = rf.riccati_solve_fwd_fused(A, Bm, fac.Ks, kff, r_dyn, r_init,
+                                                        impl=impl)
             dzx, dzu = ddxs[1:, ibx], ddus[:, ibu]
             ds = (rp[0] + dzx, rp[1] - dzx, rp[2] + dzu, rp[3] - dzu)
             dl = (-(lam[0] / s[0]) * dzx + le[0] - lam[0],

@@ -6,11 +6,14 @@ sweeps and the Riccati solve), then one navigation tick (``node_tick``, on a
 path and on a goal) for each geometry, one tick of the runtime's node, and
 the command line's ``run`` for 3 ticks on the CPU, which between them and
 the host runtime's imports (executor, ingest, simulation, checkpoint,
-native, models config, ROS bridge, profiling) import every module of the
-package; and no module of the package names JAX in an import.  Without a
+native, models config, ROS bridge, profiling), the stage-parallel and
+2-D mesh solves, a fleet tick on a mesh and both simulation demos import
+every module of the package; and no module of the package names JAX in an
+import.  Without a
 card, ``prepare_solvers`` and the command line raise unless asked for the
 CPU, as the other entry points do (``test_torch_slice.py::
-test_entry_points_default_to_the_card``).
+test_entry_points_default_to_the_card``), and so do the parallel layers'
+meshes, ``init_distributed`` on NCCL and the simulation demos.
 """
 import ast
 import os
@@ -99,6 +102,32 @@ with contextlib.redirect_stdout(out):
                "--goal", "0.3", "0.0", "0.0"])
 text = out.getvalue()
 assert rc == 0 and "N=10: GoToPose" in text and "status=1" in text, text
+from nmpc_nav_control_tpu_torch.examples import sim_follow_path, sim_pose_goal
+from nmpc_nav_control_tpu_torch.parallel import gather, make_mesh, solve_box_qp_2d
+from nmpc_nav_control_tpu_torch.parallel.fleet import Fleet, FleetGroup
+from nmpc_nav_control_tpu_torch.qp import BoxQP, solve_box_qp
+qp = BoxQP(A=torch.eye(4).expand(2, 5, 4, 4), B=torch.ones(2, 5, 4, 2) * 0.1,
+           c=torch.zeros(2, 5, 4), Qd=torch.ones(2, 6, 4), qx=torch.ones(2, 6, 4),
+           Rd=torch.ones(2, 5, 2), qu=torch.ones(2, 5, 2), dx0=torch.zeros(2, 4),
+           lbx=-torch.ones(2, 5, 2), ubx=torch.ones(2, 5, 2), lbu=-torch.ones(2, 5, 2),
+           ubu=torch.ones(2, 5, 2))
+one = solve_box_qp(qp, (1, 3), (0, 1), iters=4, stage_parallel=True)
+two = solve_box_qp_2d(qp, (1, 3), (0, 1), make_mesh((1, 2), ("data", "stage"), ["cpu"] * 2),
+                      iters=4).gather()
+assert float((one.dus - two.dus).abs().max()) < 1e-5
+spec, data = make_controller("diff", 0.025, 10, v_max=1.0, a_max=2.0, device="cpu",
+                             **GEOMETRIES[0][1])
+fleet = Fleet({{"diff": FleetGroup(spec, data, sm.NavConfig(path_capacity=4), 3)}},
+              mesh=make_mesh((2,), devices=["cpu"] * 2))
+fleet.set_states("diff", sm.on_goal_pose(fleet.groups["diff"].init_states(),
+                                         torch.tensor([0.3, 0.0, 0.0])))
+flag = torch.ones(3, dtype=torch.bool)
+tick = gather(fleet.tick({{"diff": sm.Measurements(torch.zeros(3, 3), torch.zeros(3, 3),
+                                                   torch.zeros(3), flag, flag, flag)}})["diff"])
+assert bool(tick.solve_ok.all()) and tick.status_code.tolist() == [1, 1, 1]
+with contextlib.redirect_stdout(io.StringIO()):
+    sim_pose_goal.main(["diff", "--device", "cpu", "--ticks", "2", "--horizon", "10"])
+    sim_follow_path.main(["--device", "cpu", "--ticks", "2"])
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m] is not None)
 print("ok", float(cmd.v[0]))
 """
@@ -165,4 +194,24 @@ def test_prepare_and_cli_default_to_the_card(tmp_path):
                  ["run", "--config", str(runtime_yaml), "--device", "cuda"],
                  ["prepare", models], ["prepare", models, "--device", "cuda"]):
         with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv)
+
+
+def test_parallel_layers_and_demos_default_to_the_card():
+    """Without devices named, the meshes take the visible cards, NCCL
+    needs a card, and the demos run on the card: without one they raise,
+    never carry on on the CPU or on gloo."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default works")
+    from nmpc_nav_control_tpu_torch.examples import sim_follow_path, sim_pose_goal
+    from nmpc_nav_control_tpu_torch.parallel import global_data_mesh, init_distributed, make_mesh
+
+    for call in (make_mesh, global_data_mesh,
+                 lambda: init_distributed("127.0.0.1:1", 1, 0)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert not torch.distributed.is_initialized()
+    for main, argv in ((sim_pose_goal.main, ["--ticks", "1"]),
+                       (sim_follow_path.main, ["--ticks", "1"])):
+        with pytest.raises((RuntimeError, AssertionError), match="CUDA"):
             main(argv)
