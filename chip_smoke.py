@@ -131,7 +131,31 @@ It imports nothing of JAX.  Phases, each printing one line per result:
      geometries at ``--noise 0`` (the final error within 1 mm of the JAX
      script's) and ``--noise 0.05`` (printed; the median final error over
      32 noise streams inside the JAX script's range over 32 keys), and
-     ``sim_follow_path`` to IDLE within 3 cm of the path end.
+     ``sim_follow_path`` to IDLE within 3 cm of the path end;
+ 14. the AOT tick artifacts (``runtime/aot.py``): (a) ``python -m
+     nmpc_nav_control_tpu_torch export`` in parallel subprocesses for the
+     three runtime YAMLs at N=80 (platforms cuda and cpu), diff on the
+     Riccati route (``NMPC_TPU_TILED_IPM=0``) and diff at ``bench.py``'s
+     fleet setting (N=40, ``--batch 2048``, cuda), each export's seconds and
+     bytes; (b) each artifact loaded in a process of its own that imports
+     ``runtime.aot`` and nothing else of the port (JAX blocked; no module of
+     ``models``, ``rti``, ``qp``, ``paths`` or ``control.controllers``
+     loaded), driven 40 ticks to the pose goal (1, 0, 0) on the measurements
+     of a ``GraphedNavigator`` of the same config run here in closed loop on
+     the demo plant (the fleet's robots start on y in [-0.25, 0.25]): every
+     leaf of every tick equal to the navigator's bit for bit, or within
+     3.6e-6 with the leaves that differ printed; (c) the loaded tick's
+     capture launches exactly 8/8/8/8/1 (Riccati 8/16/16) and the 40 ticks
+     two warm-up calls' and the capture's; (d) the loaded tick graphed and
+     eager and the navigator graphed before and after it, CUDA events over
+     20 chained calls, beside the card's name and power, the first call
+     (warm-ups and capture) apart, and the diff N=80 artifact loaded in
+     this process too and timed in turns with its navigator; (e) the cpu
+     platform of the diff
+     default-route and Riccati artifacts loaded on the CPU, 3 ticks equal
+     to the port's CPU eager tick bit for bit.  The loading processes
+     deserialize and run the CPU platform in parallel, then take the card
+     one at a time with nothing else running.
 
 Any failure raises, and the script exits non-zero.  Before the last line it
 prints the kernels as one JSON object (each with its bound: the bytes it
@@ -243,7 +267,10 @@ def _device_ms(torch, fn, reps=10, tries=3):
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        total = sum(getattr(e, "self_device_time_total", 0.0) for e in _profile(torch, fn, reps))
+        # The kernels' own rows: a wrapper's op (nmpc_tpu::<kernel>) is a row
+        # of its own that repeats its kernel's device time.
+        total = sum(e.self_device_time_total for e in _profile(torch, fn, reps)
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
         if total > 0:
             return total / reps / 1000.0
     raise RuntimeError(f"the profiler showed no device time in {tries} traces")
@@ -273,7 +300,9 @@ def _tick_breakdown(torch, fn, reps=5):
     torch.cuda.synchronize()
     total, split = 0.0, {}
     for e in _profile(torch, fn, reps):
-        t = getattr(e, "self_device_time_total", 0.0)
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = e.self_device_time_total
         total += t
         if PORT_KERNEL.search(e.key):
             name = next((n for key, n in KERNEL_OF if re.search(key, e.key)), e.key)
@@ -1287,8 +1316,8 @@ def _top_kernels(torch, fn, n=3):
     """(device ms per call of ``fn``, [(kernel, ms per call, share)] of the
     ``n`` costliest) from one traced call; None where the trace shows no
     device time."""
-    rows = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1000.0)
-            for e in _profile(torch, fn, 1)]
+    rows = [(e.key, e.self_device_time_total / 1000.0) for e in _profile(torch, fn, 1)
+            if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(ms for _, ms in rows)
     if total <= 0:
         return None
@@ -1539,6 +1568,328 @@ def _phase_demos(torch, dev):
     out.update(follow_path=dict(finished=r["finished"], dist_end=dist_end),
                seconds=time.perf_counter() - t0)
     return out
+
+
+# ---- Phase 14: the AOT tick artifacts. ----
+
+AOT_TICKS = 40                   # (b): ticks of the pose goal per artifact
+AOT_CPU_TICKS = 3                # (e): ticks of the CPU platform against the CPU eager tick
+AOT_GOAL = (1.0, 0.0, 0.0)
+AOT_FLEET = 2048                 # bench.py's fleet lanes (diff, N=40)
+AOT_FLEET_SPREAD = 0.25          # m: the fleet's robots start on y in [-this, this]
+NAV_TOL = 3.6e-6                 # the f32 batched-vs-serial bound (ROADMAP section 3)
+
+# The loading process: it imports torch and runtime.aot and nothing else of
+# the port, loads one artifact for the card, runs the CPU platform where
+# asked, says so in its ``ready`` file and waits for a line on its standard
+# input: the card is its alone from then.  It drives the artifact on the
+# card (capture, then the pose goal's measurements), times it graphed and
+# eager, and writes what it computed.
+AOT_CHILD = r"""
+import json, sys, time
+sys.modules["jax"] = None
+import torch
+from nmpc_nav_control_tpu_torch.ops import _build
+from nmpc_nav_control_tpu_torch.runtime import aot
+artifact, inputs, output, ready, cpu_ticks = sys.argv[1:6]
+blob = open(artifact, "rb").read()
+t0 = time.perf_counter()
+tick = aot.load_tick(blob)
+load_s = time.perf_counter() - t0
+inp = torch.load(inputs, weights_only=False)
+leaves = aot._leaves
+n_state = len(leaves(inp["state"]))
+cpu, cpu_load_s = [], None
+if int(cpu_ticks):
+    t0 = time.perf_counter()
+    on_cpu = aot.load_tick(blob, device="cpu")
+    cpu_load_s = time.perf_counter() - t0
+    st = aot._nest(type(inp["state"]), [x.cpu() for x in leaves(inp["state"])])[0]
+    for m in inp["meas"][:int(cpu_ticks)]:
+        st, o = on_cpu(st, aot._nest(type(m), [x.cpu() for x in leaves(m)])[0])
+        cpu.append(leaves(st) + leaves(o))
+open(ready, "w").close()
+sys.stdin.readline()
+
+
+def timed(fn, reps=20):
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+state, meas = inp["state"], inp["meas"]
+torch.cuda.synchronize()
+_build.reset_launch_counts()
+t0 = time.perf_counter()
+state, out = tick(state, meas[0])
+torch.cuda.synchronize()
+first_ms = (time.perf_counter() - t0) * 1e3
+ticks = [[x.cpu() for x in leaves(state) + leaves(out)]]
+for m in meas[1:]:
+    state, out = tick(state, m)
+    ticks.append([x.cpu() for x in leaves(state) + leaves(out)])
+counts = _build.launch_counts()
+graphed_ms = timed(lambda: tick(state, meas[-1]))
+flat = [x.clone() for x in leaves(inp["state"]) + leaves(meas[-1])]
+
+
+def eager():
+    flat[:n_state] = tick.program(*flat)[:n_state]
+
+
+eager_ms = timed(eager)
+mods = sorted(m for m in sys.modules if m.split(".")[0] == "nmpc_nav_control_tpu_torch"
+              and (m.split(".")[1:2] in (["models"], ["rti"], ["qp"], ["paths"])
+                   or m == "nmpc_nav_control_tpu_torch.control.controllers"))
+torch.save({"ticks": ticks, "cpu": cpu}, output)
+print(json.dumps(dict(load_s=load_s, cpu_load_s=cpu_load_s, first_ms=first_ms,
+                      capture=tick.capture_launches, counts=counts, graphed_ms=graphed_ms,
+                      eager_ms=eager_ms, model_modules=mods, meta=tick.meta)))
+"""
+
+
+def _aot_cases(tmp):
+    """The artifacts: the runtime YAMLs at N=80, B=1, on the default route;
+    diff on the Riccati route; diff at bench.py's fleet setting (N=40, 2048
+    lanes), whose YAML is runtime_diff.yaml at tf_ini 1.0 s."""
+    cfg = os.path.join(ROOT, "config", "runtime_{}.yaml")
+    fleet_yaml = os.path.join(tmp, "runtime_diff_N40.yaml")
+    with open(cfg.format("diff")) as f, open(fleet_yaml, "w") as g:
+        g.write(re.sub(r"(?m)^tf_ini:.*$", "tf_ini: 1.0", f.read()))
+    cases = [dict(name=f"{g} N=80", yaml=cfg.format(g), geometry=g, batch=None, route="1",
+                  per_tick=PER_TICK, cpu=g == "diff") for g in ("diff", "omni4", "tric")]
+    cases.append(dict(name="diff N=80 Riccati", yaml=cfg.format("diff"), geometry="diff",
+                      batch=None, route="0", per_tick=RICCATI_PER_TICK, cpu=True))
+    cases.append(dict(name=f"diff N=40 B={AOT_FLEET}", yaml=fleet_yaml, geometry="diff",
+                      batch=AOT_FLEET, route="1", per_tick=PER_TICK, cpu=False,
+                      platforms=["cuda"]))
+    for i, c in enumerate(cases):
+        c.update(artifact=os.path.join(tmp, f"tick{i}.aot"), inputs=os.path.join(tmp, f"in{i}.pt"),
+                 output=os.path.join(tmp, f"out{i}.pt"))
+    return cases
+
+
+def _aot_export(cases):
+    """(a): start ``python -m nmpc_nav_control_tpu_torch export`` for every
+    case, the processes in parallel (the default platforms, cuda and cpu,
+    unless the case names its own)."""
+    procs = []
+    for c in cases:
+        argv = [sys.executable, "-m", "nmpc_nav_control_tpu_torch", "export", "--config",
+                c["yaml"], "-o", c["artifact"]]
+        if c["batch"] is not None:
+            argv += ["--batch", str(c["batch"])]
+        for p in c.get("platforms", ()):
+            argv += ["--platform", p]
+        env = dict(os.environ, NMPC_TPU_TILED_IPM=c["route"], OMP_NUM_THREADS="1")
+        procs.append((c, time.perf_counter(), subprocess.Popen(
+            argv, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def _aot_export_wait(procs):
+    """Each case gets its export's seconds and bytes."""
+    for c, t0, proc in procs:
+        out, err = proc.communicate(timeout=900)
+        c["export_s"] = time.perf_counter() - t0
+        if proc.returncode != 0 or "exported" not in out:
+            raise AssertionError(f"phase 14 export {c['name']}: rc {proc.returncode}\n{out}\n{err}")
+        c["bytes"] = os.path.getsize(c["artifact"])
+        print(f"phase 14 export {c['name']}: {out.strip()}; {c['export_s']:.1f} s ({len(procs)} "
+              f"exports in parallel beside the references' runs), {c['bytes']} bytes")
+
+
+def _aot_reference(torch, c, dev):
+    """The pose goal through a GraphedNavigator of the same config: its
+    state and measurements at the start, its outputs at every tick (on the
+    CPU), the navigator (timed later) and the CPU eager ticks for (e)."""
+    from nmpc_nav_control_tpu_torch.control import GraphedNavigator, make_controller
+    from nmpc_nav_control_tpu_torch.control import state_machine as sm
+    from nmpc_nav_control_tpu_torch.examples import sim_pose_goal as demo
+    from nmpc_nav_control_tpu_torch.runtime import load_config
+
+    _set_route(c["route"])
+    config = load_config(c["yaml"])
+    g, lanes = c["geometry"], c["batch"] or 1
+    spec, data = make_controller(g, config.dt, config.horizon, device=dev,
+                                 **config.controller_kwargs())
+    nav = GraphedNavigator(spec, data, config.nav, lanes)
+    state0 = sm.on_goal_pose(sm.node_init(spec, config.nav, lanes, torch.float32, dev),
+                             torch.tensor(AOT_GOAL, device=dev))
+    nav.load_state(state0)
+    plants = torch.zeros(lanes, demo.plant_size(g), device=dev)
+    if lanes > 1:
+        plants[:, 1] = torch.linspace(-AOT_FLEET_SPREAD, AOT_FLEET_SPREAD, lanes)
+    meas, ticks = [], []
+    for _ in range(AOT_TICKS):
+        meas.append(_clone(_fleet_meas(torch, sm, g, plants, data.p)))
+        st, out = nav.step(meas[-1])
+        ticks.append([x.cpu() for x in _leaves(st) + _leaves(out)])
+        plants = _fleet_advance(torch, g, plants, out, data.p)
+    single = c["batch"] is None
+
+    def lane0(tree):
+        return _squeeze(tree) if single else tree
+
+    torch.save({"state": lane0(_clone(state0)), "meas": [lane0(m) for m in meas]}, c["inputs"])
+    cpu = []
+    if c["cpu"]:
+        spec_c, data_c = make_controller(g, config.dt, config.horizon, device="cpu",
+                                         **config.controller_kwargs())
+        st = _to(state0, "cpu")
+        for m in meas[:AOT_CPU_TICKS]:
+            st, out = sm.node_tick(spec_c, data_c, config.nav, st, _to(m, "cpu"))
+            cpu.append(_leaves(st) + _leaves(out))
+    _set_route("1")
+    return dict(ticks=ticks, cpu=cpu, nav=nav, route=c["route"], dt_ms=1e3 * config.dt)
+
+
+def _squeeze(tree):
+    """A B=1 NamedTuple tree without its lane axis."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(_squeeze(x) for x in tree))
+    return tree[0]
+
+
+def _aot_gap(torch, got, want, single):
+    """(leaves that differ, max |got - want| over them) of two ticks' leaves,
+    ``got`` without the lane axis where ``single``."""
+    differ, gap = 0, 0.0
+    for g, w in zip(got, want):
+        w = w[0] if single else w
+        if g.shape != w.shape or g.dtype != w.dtype:
+            return float("inf"), float("inf")
+        if not torch.equal(g, w):
+            differ += 1
+            gap = max(gap, float((g.double() - w.double()).abs().max()))
+    return differ, gap
+
+
+def _aot_wait_ready(cases, procs, timeout=900):
+    """Until every loading process has loaded its artifact and run its CPU
+    platform; raises on one that ended instead."""
+    t0 = time.perf_counter()
+    while not all(os.path.exists(c["output"] + ".ready") for c in cases):
+        for c, proc in zip(cases, procs):
+            if proc.poll() is not None:
+                raise AssertionError(f"phase 14 load {c['name']}: rc {proc.returncode}\n"
+                                     f"{proc.communicate()[1]}")
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError("phase 14: the loading processes are not ready")
+        time.sleep(0.5)
+
+
+def _phase_aot(torch, dev, smi):
+    """Phase 14."""
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        cases = _aot_cases(tmp)
+        exports = _aot_export(cases)
+        refs = [_aot_reference(torch, c, dev) for c in cases]
+        _aot_export_wait(exports)
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", AOT_CHILD, c["artifact"], c["inputs"], c["output"],
+             c["output"] + ".ready", str(AOT_CPU_TICKS if c["cpu"] else 0)], cwd=ROOT, env=env,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for c in cases]
+        _aot_wait_ready(cases, procs)
+        # Each loaded tick takes the card alone, between two timings of its
+        # navigator: nothing else runs on the card or the host meanwhile.
+        done = []
+        for c, ref, proc in zip(cases, refs, procs):
+            _set_route(ref["route"])
+            before = _time_ms(torch, ref["nav"].step)
+            done.append(proc.communicate(input="go\n", timeout=900))
+            ref["nav_ms"] = (before, _time_ms(torch, ref["nav"].step))
+        _set_route("1")
+        out = {}
+        for c, ref, proc, (text, err) in zip(cases, refs, procs, done):
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 14 load {c['name']}: rc {proc.returncode}\n{err}")
+            r = json.loads(text.strip().splitlines()[-1])
+            got = torch.load(c["output"], weights_only=False)
+            single = c["batch"] is None
+            per = [_aot_gap(torch, g, w, single) for g, w in zip(got["ticks"], ref["ticks"])]
+            differ, gap = max(d for d, _ in per), max(x for _, x in per)
+            cpu = [_aot_gap(torch, g, w, single) for g, w in zip(got["cpu"], ref["cpu"])]
+            cpu_differ = max((d for d, _ in cpu), default=0)
+            want = {k: v * (2 + 1) for k, v in c["per_tick"].items()}
+            faults = []
+            if r["model_modules"]:
+                faults.append(f"the loading process imported {r['model_modules']}")
+            if r["capture"] != c["per_tick"]:
+                faults.append(f"launches at capture {r['capture']}")
+            if r["counts"] != want:
+                faults.append(f"the {AOT_TICKS} ticks launched {r['counts']}, not two warm-up "
+                              f"calls' and the capture's {want}")
+            if len(got["ticks"]) != AOT_TICKS or not gap <= NAV_TOL:
+                faults.append(f"{differ} leaves differ from the GraphedNavigator, by up to "
+                              f"{gap:.3e}")
+            if c["cpu"] and (len(got["cpu"]) != AOT_CPU_TICKS or cpu_differ):
+                faults.append(f"the CPU platform differs from the CPU eager tick in "
+                              f"{cpu_differ} leaves")
+            if faults:
+                raise AssertionError(f"phase 14 {c['name']}: {'; '.join(faults)}")
+            m = r["meta"]
+            print(f"phase 14 load {c['name']} ({m['route']} route, torch {m['torch']} at export): "
+                  f"deserialized in {r['load_s']:.1f} s in a process without the model code; "
+                  f"first call (warm-up and capture) {r['first_ms']:.1f} ms, launches at capture "
+                  f"{r['capture']}; {AOT_TICKS} ticks of the goal {AOT_GOAL} "
+                  + ("equal to the GraphedNavigator's bit for bit" if differ == 0 else
+                     f"within {gap:.3e} of the GraphedNavigator ({differ} leaves differ)")
+                  + (f"; CPU platform ({r['cpu_load_s']:.1f} s to load) equal to the CPU eager "
+                     f"tick bit for bit over {AOT_CPU_TICKS} ticks" if c["cpu"] else ""))
+            nav = sum(ref["nav_ms"]) / 2
+            print(f"phase 14 time {c['name']} [{smi}]: loaded tick {r['graphed_ms']:.3f} ms "
+                  f"graphed, {r['eager_ms']:.3f} ms eager; GraphedNavigator "
+                  f"{ref['nav_ms'][0]:.3f} ms before and {ref['nav_ms'][1]:.3f} ms after it, "
+                  f"graphed (CUDA events, 20 chained calls each); loaded / navigator "
+                  f"{r['graphed_ms'] / nav:.3f}; budget {ref['dt_ms']:.0f} ms")
+            out[c["name"]] = dict(export_s=c["export_s"], bytes=c["bytes"], load_s=r["load_s"],
+                                  cpu_load_s=r["cpu_load_s"], first_ms=r["first_ms"],
+                                  capture=r["capture"], graphed_ms=r["graphed_ms"],
+                                  eager_ms=r["eager_ms"], nav_ms=ref["nav_ms"],
+                                  leaves_differ=differ, max_gap=gap)
+        out["same process"] = _aot_pair(torch, cases[0], refs[0], smi)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 14: {out['seconds']:.1f} s")
+    return out
+
+
+def _aot_pair(torch, c, ref, smi):
+    """(d) in one process: the first case's artifact loaded here and timed
+    in turns with its GraphedNavigator (navigator, loaded, loaded,
+    navigator), so that both replay under the same process and card state."""
+    from nmpc_nav_control_tpu_torch.runtime import aot
+
+    _set_route(ref["route"])
+    with open(c["artifact"], "rb") as f:
+        tick = aot.load_tick(f.read())
+    inp = torch.load(c["inputs"], weights_only=False)
+    state, _ = tick(inp["state"], inp["meas"][0])
+    meas = inp["meas"][-1]
+
+    def loaded():
+        tick(state, meas)
+
+    ms = [_time_ms(torch, f) for f in (ref["nav"].step, loaded, loaded, ref["nav"].step)]
+    ratio = (ms[1] + ms[2]) / (ms[0] + ms[3])
+    print(f"phase 14 time {c['name']} in one process [{smi}]: GraphedNavigator {ms[0]:.3f} / "
+          f"{ms[3]:.3f} ms, loaded tick {ms[1]:.3f} / {ms[2]:.3f} ms graphed (navigator, loaded, "
+          f"loaded, navigator; CUDA events, 20 chained calls each); loaded / navigator "
+          f"{ratio:.3f}")
+    _set_route("1")
+    return dict(nav_ms=[ms[0], ms[3]], loaded_ms=[ms[1], ms[2]], ratio=ratio)
 
 
 def main() -> int:
@@ -1915,6 +2266,9 @@ def main() -> int:
     print(f"phase 13: {time.perf_counter() - t13:.1f} s (fleet {record['fleet']['seconds']:.1f}, "
           f"N={LONG_N} {record['long_horizon']['seconds']:.1f}, multihost "
           f"{record['multihost']['seconds']:.1f}, demos {record['demos']['seconds']:.1f})")
+
+    # ---- Phase 14: the AOT tick artifacts. ----
+    record["aot"] = _phase_aot(torch, dev, smi)
 
     elapsed = time.perf_counter() - t_start
     print(f"chip_smoke: all phases passed in {elapsed:.1f} s")

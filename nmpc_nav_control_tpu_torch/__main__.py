@@ -12,14 +12,18 @@ executables and launch files:
               fixed-rate executor against a simulated robot; the
               ``src/main.cpp`` + ``launch/run_nmpc_nav_control.launch``
               analog (with the simulated plant standing in for ROS/TF I/O).
+  export    — serialize the navigation tick to an AOT artifact
+              (``runtime/aot.py``; the prebuilt-capsule analog), for the
+              platforms ``--platform`` names (default cuda and cpu).
 
-Both run on the card unless ``--device cpu`` asks for the CPU; with no card
-they raise.  The kernel build in ``build/kernels/`` is the port's cache
-across processes (the JAX package's persistent compilation cache has no
-other counterpart: a CUDA graph cannot be serialized).  On the card ``run``
-also prints the node's first tick, which captures its CUDA graph, and the
-cycles after it.  The JAX package's ``export`` (``runtime/aot.py``) and
-``bench`` (``bench.py`` imports JAX) are not ported yet.
+``prepare`` and ``run`` run on the card unless ``--device cpu`` asks for
+the CPU; with no card they raise, and so does ``export`` for its ``cuda``
+platform.  The kernel build in ``build/kernels/`` is the port's cache across
+processes (the JAX package's persistent compilation cache has no other
+counterpart: a CUDA graph cannot be serialized).  On the card ``run`` also
+prints the node's first tick, which captures its CUDA graph, and the cycles
+after it.  The JAX package's ``bench`` is not ported: it runs ``bench.py``,
+which imports JAX, and the port's benchmark is work of its own.
 """
 from __future__ import annotations
 
@@ -138,6 +142,19 @@ def cmd_run(args) -> int:
     return 0
 
 
+def cmd_export(args) -> int:
+    from nmpc_nav_control_tpu_torch.runtime.aot import save_tick
+    from nmpc_nav_control_tpu_torch.runtime.config import load_config
+
+    config = load_config(args.config)
+    platforms = tuple(args.platform) if args.platform else ("cuda", "cpu")
+    meta = save_tick(config, args.output, batch=args.batch, platforms=platforms)
+    print(f"exported {meta['geometry']} tick (N={meta['horizon']}, "
+          f"batch={meta['batch']}, platforms={meta['platforms']}) "
+          f"-> {args.output}")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m nmpc_nav_control_tpu_torch",
@@ -181,10 +198,21 @@ def main(argv=None) -> int:
         p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                        help="run on the card (default) or on the CPU")
 
+    p = sub.add_parser("export", help="serialize the tick to an AOT artifact "
+                                      "(capsule analog)")
+    p.add_argument("--config", required=True, help="runtime YAML path")
+    p.add_argument("-o", "--output", required=True, help="artifact path")
+    p.add_argument("--batch", type=int, default=None,
+                   help="export the fleet tick over this many lanes")
+    p.add_argument("--platform", action="append", default=None, choices=["cuda", "cpu"],
+                   help="platform to trace for (repeatable; default cuda+cpu)")
+    p.set_defaults(fn=cmd_export)
+
     args = ap.parse_args(argv)
     if args.cmd == "run" and args.path is not None and len(args.path) % 2:
         ap.error("--path needs an even number of values (x y pairs)")
-    _check_device(args.device)
+    if args.cmd != "export":
+        _check_device(args.device)
     return args.fn(args)
 
 

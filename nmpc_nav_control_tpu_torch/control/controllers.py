@@ -11,7 +11,7 @@ otherwise.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Sequence
+from typing import Sequence
 
 import torch
 
@@ -25,6 +25,7 @@ from nmpc_nav_control_tpu_torch.rti.step import (
     rti_reset,
     rti_step,
 )
+from nmpc_nav_control_tpu_torch.tick_types import CmdVel
 from nmpc_nav_control_tpu_torch.utils.index import sel
 
 __all__ = [
@@ -35,19 +36,6 @@ __all__ = [
     "controller_reset",
     "controller_step",
 ]
-
-
-class CmdVel(NamedTuple):
-    """Command triple per lane.
-
-    diff:  (v, 0, w) from the integrated wheel references;
-    omni4: (v, vn, w) from the integrated wheel references;
-    tric:  (v_ref, 0, alpha_ref), the integrated references themselves.
-    """
-
-    v: torch.Tensor
-    vn: torch.Tensor
-    w: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)

@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple
 
 import torch
 
@@ -54,7 +53,6 @@ from nmpc_nav_control_tpu_torch.paths.pathlist import take_rows
 from nmpc_nav_control_tpu_torch.paths.projection import project_to_path
 from nmpc_nav_control_tpu_torch.paths.segment import PathSegment
 from nmpc_nav_control_tpu_torch.paths.windowing import (
-    PathWindow,
     active_path_list,
     ingest,
     path_remains,
@@ -64,7 +62,8 @@ from nmpc_nav_control_tpu_torch.paths.windowing import (
     top_up,
     window_init,
 )
-from nmpc_nav_control_tpu_torch.rti.step import RTIState, rti_reset
+from nmpc_nav_control_tpu_torch.rti.step import rti_reset
+from nmpc_nav_control_tpu_torch.tick_types import Measurements, NodeState, TickOutput
 from nmpc_nav_control_tpu_torch.utils.angles import dist, norm_ang_rad
 
 __all__ = [
@@ -96,52 +95,6 @@ class NavConfig:
     max_active_path_length: float = 5.0
     path_capacity: int = 16
     discretizer: str = "fast"
-
-
-class NodeState(NamedTuple):
-    status: torch.Tensor          # [B] int32
-    goal_pose: torch.Tensor       # [B, 3]
-    window: PathWindow
-    active_path_u: torch.Tensor   # [B] fractional parameter into the window
-    rti: RTIState
-    request_id: torch.Tensor      # [B] int32 (ParametricPathSet2 request_id)
-
-
-class Measurements(NamedTuple):
-    """Host-side state ingest (the TF-acquisition boundary, ``:401-506``)."""
-
-    pose: torch.Tensor          # [B, 3] (x, y, theta), theta pre-unwrapped
-    vel: torch.Tensor           # [B, 3] (v, vn, w) body velocity
-    steer_angle: torch.Tensor   # [B] measured steering-wheel angle (tric)
-    pose_valid: torch.Tensor    # [B] bool
-    vel_valid: torch.Tensor     # [B] bool
-    steer_valid: torch.Tensor   # [B] bool
-
-
-class TickOutput(NamedTuple):
-    cmd: CmdVel                    # command triple, zeroed when stopping
-    publish_cmd: torch.Tensor      # [B] bool: cmd_vel published this tick
-    status_code: torch.Tensor      # [B] int32 STATUS_* (control_status)
-    request_id: torch.Tensor       # [B] int32
-    path_remains: torch.Tensor     # [B]
-    kkt_res: torch.Tensor          # [B] solver KKT residual
-    solve_ok: torch.Tensor         # [B] bool
-    debug_path: torch.Tensor       # [B, N+1, 3] discretized reference poses
-                                   #   (``pubDebugDiscretizedPath``, ``:722-738``)
-    publish_debug: torch.Tensor    # [B] bool: FollowPath ticks only (``:670``)
-    active_path_u: torch.Tensor    # [B] u for the actual_path topic (``:390-399``)
-    # actual_path payload: the front active curve on solving FollowPath
-    # ticks (``pubActualPath``, ``:390-399,696``).
-    publish_actual: torch.Tensor   # [B] bool
-    actual_cx: torch.Tensor        # [B, DEG]
-    actual_cy: torch.Tensor        # [B, DEG]
-    actual_ch: torch.Tensor        # [B, DEG]
-    actual_velocity: torch.Tensor  # [B]
-    actual_frame: torch.Tensor     # [B] int32 frame code of that curve
-    # Frame the measured pose must be expressed in next tick: the front
-    # active curve after any end-of-curve rotation (``mainCycle``,
-    # ``:520-524``); 0 = no active path.
-    next_frame: torch.Tensor       # [B] int32
 
 
 def node_init(spec: ControllerSpec, cfg: NavConfig, batch: int, dtype=torch.float32,

@@ -17,8 +17,16 @@ Each wrapper that launches a kernel adds one to that kernel's count in
 ``launch_counts()``, and nothing else touches the counts, so a run can show
 which kernels its main path went through; a CUDA graph that captures a
 wrapper's launch counts it once, at capture, and not at each replay.
-``use_kernel`` and ``check`` are the wrappers' shared routing and argument
-checks.
+
+``define_op`` registers a kernel as a ``torch.library`` custom op,
+``nmpc_tpu::<kernel>`` (through ``torch.library.Library``, whose
+dispatch, which every eager call of a wrapper pays, is lighter than
+``torch.library.custom_op``'s), with one schema for all of them: the CUDA
+implementation launches the kernel (and counts it, once per launch), the
+CPU one runs its plain version and the fake one gives the outputs' shapes,
+so that ``torch.export`` traces a kernel as one node and a loaded program
+runs it on either device (``runtime/aot.py``).  ``use_op``, ``use_kernel``
+and ``check`` are the wrappers' shared routing and argument checks.
 """
 from __future__ import annotations
 
@@ -40,12 +48,16 @@ __all__ = [
     "CSRC",
     "build",
     "check",
+    "define_op",
     "header_config",
     "launch",
     "launch_counts",
     "on_cuda",
     "reset_launch_counts",
+    "source_hash",
+    "traced",
     "use_kernel",
+    "use_op",
 ]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -56,10 +68,16 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libnmpc_kernels.so"
+# The ops' namespace and their one schema: a config key (the compiled
+# specialisation's parameters), the operands in the order of the kernel's
+# argument struct, and its two float arguments; the outputs as a list.
+NAMESPACE = "nmpc_tpu"
+OP_SCHEMA = "(str key, Tensor[] ins, float f0, float f1) -> Tensor[]"
 
 _counts: collections.Counter = collections.Counter()
 _lib: ctypes.CDLL | None = None
 _bound: set = set()
+_ops = torch.library.Library(NAMESPACE, "DEF")
 
 
 def _sources():
@@ -77,6 +95,17 @@ def _nvcc() -> str:
     return str(path)
 
 
+def source_hash() -> str:
+    """Hash of the kernel sources and the nvcc flags: the build's directory
+    name, and what a tick artifact records of the kernels it was traced
+    against."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def build() -> tuple[Path, float]:
     """Compile the kernels if this source hash has no library yet.
 
@@ -84,11 +113,7 @@ def build() -> tuple[Path, float]:
     The nvcc log, with ptxas' register and spill counts, is kept beside the
     library as ``build.log``.
     """
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    out_dir = BUILD_ROOT / h.hexdigest()[:16]
+    out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib, 0.0
@@ -176,6 +201,59 @@ def use_kernel(tensors, impl: str) -> bool:
     if impl not in ("kernel", "plain"):
         raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
     return cuda and impl == "kernel"
+
+
+def traced(tensors) -> bool:
+    """True where a tracer made the tensors: ``torch.export``'s fake tensors
+    and every other subclass of ``torch.Tensor``."""
+    return any(type(t) is not torch.Tensor for t in tensors)
+
+
+def use_op(tensors, impl: str) -> bool:
+    """True where a wrapper calls its op: to launch its kernel
+    (``use_kernel``), and for a tracer's CPU tensors, so that the traced
+    program holds the op, which runs the plain version on the CPU."""
+    return use_kernel(tensors, impl) or (traced(tensors) and not on_cuda(tensors))
+
+
+def define_op(name: str, io, plain):
+    """Register kernel ``name`` as the op ``nmpc_tpu::<name>``
+    (``OP_SCHEMA``) and return it.
+
+    ``io(key, ins)`` -> (N, B, [(name, shape)] of the inputs, [shape] of the
+    outputs, ``config``), ``config()`` the compiled specialisation's name
+    (it raises where there is none); ``plain(key, ins, f0, f1)`` -> the
+    plain version's outputs as a list.  On CUDA tensors the op checks its
+    operands and launches the kernel on new outputs; on CPU tensors it runs
+    the plain version, copying out an output that shares memory with an
+    input or another output (a plain version's layout change that moved no
+    data, at B=1), which an op may not return; its fake gives the outputs'
+    shapes."""
+    def cuda(key, ins, f0, f1):
+        N, B, inputs, outputs, config = io(key, ins)
+        config = config()
+        check([(n, t, shape) for (n, shape), t in zip(inputs, ins)])
+        outs = [ins[0].new_empty(shape) for shape in outputs]
+        launch(name, config, [*ins, *outs], N, B, f0, f1)
+        return outs
+
+    def cpu(key, ins, f0, f1):
+        seen, outs = {t.untyped_storage().data_ptr() for t in ins}, []
+        for t in plain(key, ins, f0, f1):
+            if t.untyped_storage().data_ptr() in seen:
+                t = t.clone(memory_format=torch.contiguous_format)
+            seen.add(t.untyped_storage().data_ptr())
+            outs.append(t)
+        return outs
+
+    def fake(key, ins, f0, f1):
+        return [ins[0].new_empty(shape) for shape in io(key, ins)[3]]
+
+    _ops.define(name + OP_SCHEMA)
+    _ops.impl(name, cuda, "CUDA")
+    _ops.impl(name, cpu, "CPU")
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=_ops)
+    return getattr(getattr(torch.ops, NAMESPACE), name).default
 
 
 def check(named_shapes) -> None:

@@ -21,13 +21,21 @@ packed to their structural nonzeros (``pack_sparse``).  The four bound
 groups travel as 4-tuples ordered (x lower, x upper, u lower, u upper); x
 bounds at row k apply to stage k+1.
 
-Each wrapper routes by its ``impl`` argument and the device: with "kernel"
-(the default) tensors on the CPU go to the plain torch version beside it,
-tensors on a CUDA device go to the hand-written kernel in
-``csrc/ipm_fused.cu`` (its header says how each kernel splits a lane's
-stages over threads; f32 only), or the wrapper raises; "plain" runs the
-plain version on the tensors' own device, which is how the solve runs f64
-on the card (``qp.ipm.kernel_impl``).  There is no fallback between the
+Each sweep is a ``torch.library`` custom op, ``nmpc_tpu::<kernel>``
+(``OPS``): on CUDA tensors it checks its operands and launches the
+hand-written kernel in ``csrc/ipm_fused.cu`` (its header says how each
+kernel splits a lane's stages over threads; f32 only), on CPU tensors it
+runs the plain torch version beside it, and under a tracer its fake gives
+the outputs' shapes, so an exported tick holds one node per sweep
+(``runtime/aot.py``).  An op takes the ``SweepConfig`` as its key string
+and its operands as one flat list, in the order of the kernel's argument
+struct, and returns a flat list that the wrapper nests again.  Each wrapper
+routes by its ``impl`` argument and the device (``ops._build.use_op``):
+with "kernel" (the default) tensors on a CUDA device go to the op and so
+to the kernel, or the wrapper raises, and tensors on the CPU to the plain
+version (through the op where a tracer made them); "plain" runs the plain
+version on the tensors' own device, which is how the solve runs f64 on the
+card (``qp.ipm.kernel_impl``).  There is no fallback between the
 two.  The plain versions follow the TPU kernels' conventions so that
 every output is comparable: the cost-to-go carry excludes the stage
 diagonal, which is added when consumed; backward sweeps read Qd/qx/dx at
@@ -41,13 +49,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import json
 from typing import NamedTuple
 
 import torch
 
 from nmpc_nav_control_tpu_torch.ops import _build
-from nmpc_nav_control_tpu_torch.ops.linearize_packed import nz_positions
-from nmpc_nav_control_tpu_torch.utils.index import index_tensor, mask_tensor, sel
+from nmpc_nav_control_tpu_torch.utils.index import index_tensor, mask_tensor, nz_positions, sel
 
 __all__ = [
     "SweepConfig",
@@ -64,6 +72,7 @@ __all__ = [
     "fwd_corr_plain",
     "kkt_fused_plain",
     "KERNELS",
+    "OPS",
 ]
 
 _BIG = 3.4e38
@@ -136,6 +145,20 @@ class SweepConfig:
             f"idxbx={self.idxbx} idxbu={self.idxbu} with this A/B pattern; "
             "add a csrc/config_*.cuh header and instantiate it")
 
+    @functools.cached_property
+    def key(self) -> str:
+        """This config as the string an op takes; ``from_key`` reads it."""
+        return json.dumps([self.nx, self.nu, list(self.idxbx), list(self.idxbu),
+                           [[int(v) for v in row] for row in self.asp],
+                           [[int(v) for v in row] for row in self.bsp]], separators=(",", ":"))
+
+    @staticmethod
+    @functools.lru_cache(maxsize=None)
+    def from_key(key: str) -> "SweepConfig":
+        nx, nu, idxbx, idxbu, asp, bsp = json.loads(key)
+        return SweepConfig(nx, nu, tuple(idxbx), tuple(idxbu),
+                           *(tuple(tuple(bool(v) for v in row) for row in sp) for sp in (asp, bsp)))
+
 
 class BwdFusedOut(NamedTuple):
     K: torch.Tensor        # [N, nu*nx, B] row-major gain
@@ -166,22 +189,6 @@ class FwdCorrOut(NamedTuple):
 class KKTOut(NamedTuple):
     kkt: torch.Tensor      # [B] inf-norm of the u-stationarity residual
     musum: torch.Tensor    # [B]
-
-
-# --------------------------------------------------------------------------- #
-# Routing and argument checks
-# --------------------------------------------------------------------------- #
-
-
-def _groups(cfg, N, B, prefix, tensors):
-    sizes = (cfg.nbx, cfg.nbx, cfg.nbu, cfg.nbu)
-    return [(f"{prefix}_{g}", t, (N, n, B))
-            for g, t, n in zip(("xl", "xu", "ul", "uu"), tensors, sizes)]
-
-
-def _empty_groups(cfg, N, B, like):
-    return tuple(torch.empty((N, n, B), dtype=like.dtype, device=like.device)
-                 for n in (cfg.nbx, cfg.nbx, cfg.nbu, cfg.nbu))
 
 
 # --------------------------------------------------------------------------- #
@@ -492,8 +499,136 @@ def kkt_fused_plain(cfg, A, Bm, Qd, qx, dx, Rd, qu, du, lam, s) -> KKTOut:
                   musum=_sum_sl(tuple(map(_bf, s)), lam_b))
 
 
+
+
 # --------------------------------------------------------------------------- #
-# Wrappers: CPU -> plain version, CUDA -> kernel
+# The ops: nmpc_tpu::<kernel>, the kernel on CUDA tensors, the plain version
+# on CPU tensors, output shapes for a tracer
+# --------------------------------------------------------------------------- #
+
+_GROUPED = frozenset({"rp", "corr", "ds", "dl"})   # fields that are 4 bound groups
+
+
+def _group_shapes(cfg, N, B, prefix):
+    return [(f"{prefix}_{g}", (N, n, B))
+            for g, n in zip(("xl", "xu", "ul", "uu"), (cfg.nbx, cfg.nbx, cfg.nbu, cfg.nbu))]
+
+
+def _fwd_inputs(cfg, N, B):
+    nx, nu = cfg.nx, cfg.nu
+    return ([("A", (N, cfg.nnzA, B)), ("Bm", (N, cfg.nnzB, B)), ("K", (N, nu * nx, B)),
+             ("kff", (N, nu, B)), ("rdyn", (N, nx, B)), ("r_init", (nx, B))]
+            + _group_shapes(cfg, N, B, "s") + _group_shapes(cfg, N, B, "lam")
+            + _group_shapes(cfg, N, B, "rp"))
+
+
+def _shapes(named):
+    return [shape for _, shape in named]
+
+
+# Each kernel's operands, in the order of its argument struct in
+# csrc/ipm_fused.cu: io(cfg, ins) -> (N, B, [(name, shape)] of the inputs,
+# [shape] of the outputs).
+def _bwd_fused_io(cfg, ins):
+    N, nx, B = ins[6].shape                                    # c
+    nu = cfg.nu
+    inputs = ([("A", (N, cfg.nnzA, B)), ("Bm", (N, cfg.nnzB, B)), ("Qd", (N + 1, nx, B)),
+               ("Rd", (N, nu, B)), ("qx", (N + 1, nx, B)), ("qu", (N, nu, B)),
+               ("c", (N, nx, B)), ("dx", (N + 1, nx, B)), ("du", (N, nu, B))]
+              + _group_shapes(cfg, N, B, "s") + _group_shapes(cfg, N, B, "lam")
+              + _group_shapes(cfg, N, B, "bnd"))
+    outputs = [(N, nu * nx, B), (N, nu * (nu + 1) // 2, B), (N, nx, B), (N, nx, B),
+               (N, nu, B), *_shapes(_group_shapes(cfg, N, B, "rp")), (B,)]
+    return N, B, inputs, outputs
+
+
+def _fwd_affine_io(cfg, ins):
+    N, _, B = ins[4].shape                                     # rdyn
+    return N, B, _fwd_inputs(cfg, N, B), [*_shapes(_group_shapes(cfg, N, B, "corr")), (B,),
+                                          (2, B)]
+
+
+def _bwd_corr_io(cfg, ins):
+    N, _, B = ins[2].shape                                     # K
+    nx, nu = cfg.nx, cfg.nu
+    inputs = ([("A", (N, cfg.nnzA, B)), ("Bm", (N, cfg.nnzB, B)), ("K", (N, nu * nx, B)),
+               ("L", (N, nu * (nu + 1) // 2, B)), ("Pc", (N, nx, B)), ("Qd", (N + 1, nx, B)),
+               ("qx", (N + 1, nx, B)), ("dx", (N + 1, nx, B)), ("Rd", (N, nu, B)),
+               ("qu", (N, nu, B)), ("du", (N, nu, B))]
+              + _group_shapes(cfg, N, B, "s") + _group_shapes(cfg, N, B, "lam")
+              + _group_shapes(cfg, N, B, "rp") + _group_shapes(cfg, N, B, "corr")
+              + [("sigma_mu", (B,))])
+    return N, B, inputs, [(N, nu, B)]
+
+
+def _fwd_corr_io(cfg, ins):
+    N, nx, B = ins[4].shape                                    # rdyn
+    inputs = (_fwd_inputs(cfg, N, B) + _group_shapes(cfg, N, B, "corr")
+              + [("sigma_mu", (B,))])
+    groups = _shapes(_group_shapes(cfg, N, B, "d"))
+    return N, B, inputs, [(N, nx, B), (N, cfg.nu, B), (nx, B), *groups, *groups, (B,), (B,)]
+
+
+def _kkt_io(cfg, ins):
+    N, nu, B = ins[7].shape                                    # du
+    nx = cfg.nx
+    inputs = ([("A", (N, cfg.nnzA, B)), ("Bm", (N, cfg.nnzB, B)), ("Qd", (N + 1, nx, B)),
+               ("qx", (N + 1, nx, B)), ("dx", (N + 1, nx, B)), ("Rd", (N, nu, B)),
+               ("qu", (N, nu, B)), ("du", (N, nu, B))]
+              + _group_shapes(cfg, N, B, "lam") + _group_shapes(cfg, N, B, "s"))
+    return N, B, inputs, [(B,), (B,)]
+
+
+def _args(ins, head, n_groups):
+    """A flat operand list back to a plain version's arguments: ``head``
+    tensors, ``n_groups`` 4-tuples, then the rest."""
+    end = head + 4 * n_groups
+    return [*ins[:head], *(tuple(ins[i:i + 4]) for i in range(head, end, 4)), *ins[end:]]
+
+
+def _flat(out):
+    """A sweep's result (a tensor or an output NamedTuple) as a flat list."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for f in out for t in (f if isinstance(f, tuple) else (f,))]
+
+
+def _nest(cls, flat):
+    """``_flat``'s inverse for an output NamedTuple."""
+    it = iter(flat)
+    return cls(*(tuple(next(it) for _ in range(4)) if f in _GROUPED else next(it)
+                 for f in cls._fields))
+
+
+def _define(name, io, plain):
+    """``ops._build.define_op`` for a sweep, whose key is its
+    ``SweepConfig``; ``plain(cfg, ins, f0, f1)`` runs the plain version on a
+    flat operand list."""
+    def op_io(key, ins):
+        cfg = SweepConfig.from_key(key)
+        return (*io(cfg, ins), lambda: cfg.cuda_config)
+
+    return _build.define_op(name, op_io, lambda key, ins, f0, f1:
+                            _flat(plain(SweepConfig.from_key(key), ins, f0, f1)))
+
+
+OPS = {
+    "ipm_bwd_fused": _define("ipm_bwd_fused", _bwd_fused_io, lambda cfg, ins, f0, f1:
+                             bwd_fused_plain(cfg, *_args(ins, 9, 3), reg=f0, d_cap=f1)),
+    "ipm_fwd_affine": _define("ipm_fwd_affine", _fwd_affine_io, lambda cfg, ins, f0, f1:
+                              fwd_affine_plain(cfg, *_args(ins, 6, 3), tau=f0)),
+    "ipm_bwd_corr": _define("ipm_bwd_corr", _bwd_corr_io, lambda cfg, ins, f0, f1:
+                            bwd_corr_plain(cfg, *_args(ins, 11, 4))),
+    "ipm_fwd_corr": _define("ipm_fwd_corr", _fwd_corr_io, lambda cfg, ins, f0, f1:
+                            fwd_corr_plain(cfg, *_args(ins, 6, 4), tau=f0)),
+    "ipm_kkt_fused": _define("ipm_kkt_fused", _kkt_io, lambda cfg, ins, f0, f1:
+                             kkt_fused_plain(cfg, *_args(ins, 8, 2))),
+}
+
+
+# --------------------------------------------------------------------------- #
+# Wrappers: the op (kernel on CUDA, plain version on the CPU), or the plain
+# version itself
 # --------------------------------------------------------------------------- #
 
 
@@ -506,27 +641,10 @@ def ipm_bwd_fused(cfg: SweepConfig, A, Bm, Qd, Rd, qx, qu, c, dx, du, s, lam,
     multipliers; bnd: (lbx, ubx, lbu, ubu), each [N, nb, B].
     """
     ins = (A, Bm, Qd, Rd, qx, qu, c, dx, du, *s, *lam, *bnd)
-    if not _build.use_kernel(ins, impl):
+    if not _build.use_op(ins, impl):
         return bwd_fused_plain(cfg, A, Bm, Qd, Rd, qx, qu, c, dx, du, s, lam,
                                bnd, reg=reg, d_cap=d_cap)
-    N, nx, B = c.shape
-    nu = cfg.nu
-    _build.check([("A", A, (N, cfg.nnzA, B)), ("Bm", Bm, (N, cfg.nnzB, B)),
-            ("Qd", Qd, (N + 1, nx, B)), ("Rd", Rd, (N, nu, B)),
-            ("qx", qx, (N + 1, nx, B)), ("qu", qu, (N, nu, B)),
-            ("c", c, (N, nx, B)), ("dx", dx, (N + 1, nx, B)),
-            ("du", du, (N, nu, B))]
-           + _groups(cfg, N, B, "s", s) + _groups(cfg, N, B, "lam", lam)
-           + _groups(cfg, N, B, "bnd", bnd))
-    out = BwdFusedOut(
-        K=c.new_empty((N, nu * nx, B)), L=c.new_empty((N, nu * (nu + 1) // 2, B)),
-        Pc=c.new_empty((N, nx, B)), rdyn=c.new_empty((N, nx, B)),
-        kff=c.new_empty((N, nu, B)), rp=_empty_groups(cfg, N, B, c),
-        musum=c.new_empty((B,)))
-    _build.launch("ipm_bwd_fused", cfg.cuda_config,
-                  [*ins, out.K, out.L, out.Pc, out.rdyn, out.kff, *out.rp, out.musum],
-                  N, B, reg, d_cap)
-    return out
+    return _nest(BwdFusedOut, OPS["ipm_bwd_fused"](cfg.key, ins, reg, d_cap))
 
 
 def ipm_fwd_affine(cfg: SweepConfig, A, Bm, K, kff, rdyn, r_init, s, lam, rp,
@@ -536,24 +654,9 @@ def ipm_fwd_affine(cfg: SweepConfig, A, Bm, K, kff, rdyn, r_init, s, lam, rp,
     K [N,nu*nx,B], kff [N,nu,B], rdyn [N,nx,B], r_init [nx,B] = dx0 - dx[0].
     """
     ins = (A, Bm, K, kff, rdyn, r_init, *s, *lam, *rp)
-    if not _build.use_kernel(ins, impl):
+    if not _build.use_op(ins, impl):
         return fwd_affine_plain(cfg, A, Bm, K, kff, rdyn, r_init, s, lam, rp, tau=tau)
-    N, nx, B = rdyn.shape
-    _build.check(_fwd_shapes(cfg, N, B, A, Bm, K, kff, rdyn, r_init, s, lam, rp))
-    out = FwdAffineOut(corr=_empty_groups(cfg, N, B, rdyn),
-                       alpha=rdyn.new_empty((B,)), c12=rdyn.new_empty((2, B)))
-    _build.launch("ipm_fwd_affine", cfg.cuda_config,
-                  [*ins, *out.corr, out.alpha, out.c12], N, B, tau)
-    return out
-
-
-def _fwd_shapes(cfg, N, B, A, Bm, K, kff, rdyn, r_init, s, lam, rp):
-    nx, nu = cfg.nx, cfg.nu
-    return ([("A", A, (N, cfg.nnzA, B)), ("Bm", Bm, (N, cfg.nnzB, B)),
-             ("K", K, (N, nu * nx, B)), ("kff", kff, (N, nu, B)),
-             ("rdyn", rdyn, (N, nx, B)), ("r_init", r_init, (nx, B))]
-            + _groups(cfg, N, B, "s", s) + _groups(cfg, N, B, "lam", lam)
-            + _groups(cfg, N, B, "rp", rp))
+    return _nest(FwdAffineOut, OPS["ipm_fwd_affine"](cfg.key, ins, tau, 0.0))
 
 
 def ipm_bwd_corr(cfg: SweepConfig, A, Bm, K, L, Pc, Qd, qx, dx, Rd, qu, du,
@@ -561,58 +664,26 @@ def ipm_bwd_corr(cfg: SweepConfig, A, Bm, K, L, Pc, Qd, qx, dx, Rd, qu, du,
     """Corrector backward sweep (replaces ``pallas_ipm.ipm_bwd_corr``);
     sigma_mu [B].  Returns kff_c [N, nu, B]."""
     ins = (A, Bm, K, L, Pc, Qd, qx, dx, Rd, qu, du, *s, *lam, *rp, *corr, sigma_mu)
-    if not _build.use_kernel(ins, impl):
+    if not _build.use_op(ins, impl):
         return bwd_corr_plain(cfg, A, Bm, K, L, Pc, Qd, qx, dx, Rd, qu, du,
                               s, lam, rp, corr, sigma_mu)
-    N, _, B = K.shape
-    nx, nu = cfg.nx, cfg.nu
-    _build.check([("A", A, (N, cfg.nnzA, B)), ("Bm", Bm, (N, cfg.nnzB, B)),
-            ("K", K, (N, nu * nx, B)), ("L", L, (N, nu * (nu + 1) // 2, B)),
-            ("Pc", Pc, (N, nx, B)), ("Qd", Qd, (N + 1, nx, B)),
-            ("qx", qx, (N + 1, nx, B)), ("dx", dx, (N + 1, nx, B)),
-            ("Rd", Rd, (N, nu, B)), ("qu", qu, (N, nu, B)), ("du", du, (N, nu, B)),
-            ("sigma_mu", sigma_mu, (B,))]
-           + _groups(cfg, N, B, "s", s) + _groups(cfg, N, B, "lam", lam)
-           + _groups(cfg, N, B, "rp", rp) + _groups(cfg, N, B, "corr", corr))
-    kff = K.new_empty((N, nu, B))
-    _build.launch("ipm_bwd_corr", cfg.cuda_config, [*ins, kff], N, B)
-    return kff
+    return OPS["ipm_bwd_corr"](cfg.key, ins, 0.0, 0.0)[0]
 
 
 def ipm_fwd_corr(cfg: SweepConfig, A, Bm, K, kff, rdyn, r_init, s, lam, rp,
                  corr, sigma_mu, *, tau: float, impl: str = "kernel") -> FwdCorrOut:
     """Corrector forward sweep (replaces ``pallas_ipm.ipm_fwd_corr``)."""
     ins = (A, Bm, K, kff, rdyn, r_init, *s, *lam, *rp, *corr, sigma_mu)
-    if not _build.use_kernel(ins, impl):
+    if not _build.use_op(ins, impl):
         return fwd_corr_plain(cfg, A, Bm, K, kff, rdyn, r_init, s, lam, rp,
                               corr, sigma_mu, tau=tau)
-    N, nx, B = rdyn.shape
-    _build.check(_fwd_shapes(cfg, N, B, A, Bm, K, kff, rdyn, r_init, s, lam, rp)
-           + _groups(cfg, N, B, "corr", corr) + [("sigma_mu", sigma_mu, (B,))])
-    out = FwdCorrOut(
-        ddx=rdyn.new_empty((N, nx, B)), ddu=rdyn.new_empty((N, cfg.nu, B)),
-        ddx_N=rdyn.new_empty((nx, B)), ds=_empty_groups(cfg, N, B, rdyn),
-        dl=_empty_groups(cfg, N, B, rdyn), alpha=rdyn.new_empty((B,)),
-        finite=rdyn.new_empty((B,)))
-    _build.launch("ipm_fwd_corr", cfg.cuda_config,
-                  [*ins, out.ddx, out.ddu, out.ddx_N, *out.ds, *out.dl,
-                   out.alpha, out.finite], N, B, tau)
-    return out
+    return _nest(FwdCorrOut, OPS["ipm_fwd_corr"](cfg.key, ins, tau, 0.0))
 
 
 def ipm_kkt_fused(cfg: SweepConfig, A, Bm, Qd, qx, dx, Rd, qu, du, lam,
                   s, *, impl: str = "kernel") -> KKTOut:
     """Post-solve KKT sweep (replaces ``pallas_ipm.ipm_kkt_fused``)."""
     ins = (A, Bm, Qd, qx, dx, Rd, qu, du, *lam, *s)
-    if not _build.use_kernel(ins, impl):
+    if not _build.use_op(ins, impl):
         return kkt_fused_plain(cfg, A, Bm, Qd, qx, dx, Rd, qu, du, lam, s)
-    N, nu, B = du.shape
-    nx = cfg.nx
-    _build.check([("A", A, (N, cfg.nnzA, B)), ("Bm", Bm, (N, cfg.nnzB, B)),
-            ("Qd", Qd, (N + 1, nx, B)), ("qx", qx, (N + 1, nx, B)),
-            ("dx", dx, (N + 1, nx, B)), ("Rd", Rd, (N, nu, B)),
-            ("qu", qu, (N, nu, B)), ("du", du, (N, nu, B))]
-           + _groups(cfg, N, B, "lam", lam) + _groups(cfg, N, B, "s", s))
-    out = KKTOut(kkt=du.new_empty((B,)), musum=du.new_empty((B,)))
-    _build.launch("ipm_kkt_fused", cfg.cuda_config, [*ins, out.kkt, out.musum], N, B)
-    return out
+    return _nest(KKTOut, OPS["ipm_kkt_fused"](cfg.key, ins, 0.0, 0.0))

@@ -1,6 +1,7 @@
 """Tiny-matrix linear algebra, unrolled over the matrix entries.
 
-Port of ``nmpc_nav_control_tpu/qp/linalg_small.py``.  The stage blocks are
+Port of ``nmpc_nav_control_tpu/qp/linalg_small.py``, in ``ops/`` beside
+``ops/riccati.py``, its user there.  The stage blocks are
 minuscule (nu in {2, 4}, nx in {7, 11}), so every function keeps the matrix
 dimensions unrolled as index arithmetic and is elementwise over any leading
 batch axes [..., n, n].  A non-positive pivot gives NaN through the square

@@ -18,14 +18,9 @@ from __future__ import annotations
 import torch
 
 from nmpc_nav_control_tpu_torch.ocp.integrator import make_discrete_dynamics
-from nmpc_nav_control_tpu_torch.utils.index import index_tensor
+from nmpc_nav_control_tpu_torch.utils.index import index_tensor, nz_positions
 
 __all__ = ["linearize_packed", "nz_positions"]
-
-
-def nz_positions(sp):
-    """Row-major list of (i, j) structural nonzeros of a pattern."""
-    return [(i, j) for i, row in enumerate(sp) for j, nz in enumerate(row) if nz]
 
 
 def linearize_packed(f, dt, xs, us, p, asp, bsp):

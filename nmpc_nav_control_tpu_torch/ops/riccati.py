@@ -1,9 +1,11 @@
 """Riccati factorization and solve for the stagewise LQR subproblem, batched.
 
-Port of ``nmpc_nav_control_tpu/qp/riccati.py``.  The matrix recursion (P, K,
-chol(Quu)) is separate from the vector recursion (p, kff) and the forward
-rollout, so one factorization serves the two Newton solves of a Mehrotra
-iteration.  The functions below are plain torch with a leading batch axis
+Port of ``nmpc_nav_control_tpu/qp/riccati.py``; it lives in ``ops/``
+beside the kernels it is the reference of, so that ``ops`` (and a loaded
+tick artifact, ``runtime/aot.py``) imports nothing of ``qp/``.  The matrix
+recursion (P, K, chol(Quu)) is separate from the vector recursion (p, kff)
+and the forward rollout, so one factorization serves the two Newton solves
+of a Mehrotra iteration.  The functions below are plain torch with a leading batch axis
 on every tensor ([B, N, ...]), in the JAX package's layout: the reference
 the kernels of ``ops/riccati_fused.py`` are held against and, through those
 wrappers' plain versions, the CPU route.  The batched entry points of the
@@ -24,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from nmpc_nav_control_tpu_torch.qp.linalg_small import cho_solve_small, cholesky_small
+from nmpc_nav_control_tpu_torch.ops.linalg_small import cho_solve_small, cholesky_small
 
 __all__ = ["RiccatiFactors", "riccati_factor", "riccati_solve", "riccati_solve_bwd",
            "riccati_solve_fwd", "lqr_solve"]

@@ -1,7 +1,7 @@
 """Batched Riccati factorization and solve: CUDA kernels + plain torch.
 
 Port of ``nmpc_nav_control_tpu/ops/pallas_riccati.py``.  Three kernels
-mirror the factor/solve split of ``qp/riccati.py``, so one factorization
+mirror the factor/solve split of ``ops/riccati.py``, so one factorization
 serves both Newton solves of a Mehrotra iteration:
 
   ``riccati_factor_fused``     A, B, Qd, Rd              -> Ps, Ks, Ls
@@ -15,14 +15,19 @@ Cholesky factors are packed lower triangles ``[N, nu(nu+1)/2, B]``.  Ps
 holds P_k at every row k = 0..N, and the forward half writes dx_N itself.
 The IPM transposes A and B to this layout once per solve.
 
-Each wrapper routes by its ``impl`` argument and the device: "kernel" (the
-default) sends CPU tensors to the plain version beside it (the functions of
-``qp/riccati.py`` moved to this layout) and CUDA tensors to the
-hand-written kernel in ``csrc/riccati_fused.cu``, compiled for f32 at
-(nx, nu) = (7, 2) (diff, tric) and (11, 4) (omni4), where another shape or
-dtype raises; "plain" runs the plain version on the tensors' own device,
-which is how the solve runs f64 on the card (``qp.ipm.kernel_impl``).
-There is no fallback between the two.
+Each kernel is a ``torch.library`` custom op, ``nmpc_tpu::<kernel>``
+(``OPS``, the schema of ``ops._build.OP_SCHEMA``; the key is empty, the
+shape is read from A and Bm): on CUDA tensors it launches the hand-written
+kernel in ``csrc/riccati_fused.cu``, compiled for f32 at (nx, nu) = (7, 2)
+(diff, tric) and (11, 4) (omni4), where another shape or dtype raises; on
+CPU tensors it runs the plain version beside it (the functions of
+``ops/riccati.py`` moved to this layout); under a tracer its fake gives the
+outputs' shapes.  Each wrapper routes by its ``impl`` argument and the
+device (``ops._build.use_op``): "kernel" (the default) sends CUDA tensors
+to the op and so to the kernel, and CPU tensors to the plain version
+(through the op where a tracer made them); "plain" runs the plain version
+on the tensors' own device, which is how the solve runs f64 on the card
+(``qp.ipm.kernel_impl``).  There is no fallback between the two.
 """
 from __future__ import annotations
 
@@ -31,11 +36,12 @@ from typing import NamedTuple
 import torch
 
 from nmpc_nav_control_tpu_torch.ops import _build
-from nmpc_nav_control_tpu_torch.qp import riccati as ref
+from nmpc_nav_control_tpu_torch.ops import riccati as ref
 from nmpc_nav_control_tpu_torch.utils.index import index_tensor
 
 __all__ = [
     "KERNELS",
+    "OPS",
     "RiccatiFactorsBM",
     "pack_L",
     "unpack_L",
@@ -85,7 +91,7 @@ def unpack_L(L, nu):
 
 def from_bm(x, *entry):
     """Batch-minor [rows, e, B] -> [B, rows, *entry] (the layout of
-    qp/riccati.py)."""
+    ops/riccati.py)."""
     return x.permute(2, 0, 1).reshape(x.shape[2], x.shape[0], *entry)
 
 
@@ -141,7 +147,50 @@ def solve_fwd_plain(A, Bm, Ks, kff, c, dx0):
 
 
 # --------------------------------------------------------------------------- #
-# Wrappers: CPU -> plain version, CUDA -> kernel
+# The ops: nmpc_tpu::<kernel>, the kernel on CUDA tensors, the plain version
+# on CPU tensors, output shapes for a tracer
+# --------------------------------------------------------------------------- #
+
+
+# Each kernel's operands, in the order of its argument struct in
+# csrc/riccati_fused.cu: io(key, ins) -> (N, B, [(name, shape)] of the
+# inputs, [shape] of the outputs, the compiled specialisation's name).
+def _factor_io(key, ins):
+    (nx, nu), (N, _, B) = _dims(*ins[:2]), ins[0].shape
+    inputs = [("A", (N, nx * nx, B)), ("Bm", (N, nx * nu, B)), ("Qd", (N + 1, nx, B)),
+              ("Rd", (N, nu, B))]
+    outputs = [(N + 1, nx * nx, B), (N, nu * nx, B), (N, nu * (nu + 1) // 2, B)]
+    return N, B, inputs, outputs, lambda: _config(nx, nu)
+
+
+def _solve_bwd_io(key, ins):
+    (nx, nu), (N, _, B) = _dims(*ins[:2]), ins[0].shape
+    inputs = [("A", (N, nx * nx, B)), ("Bm", (N, nx * nu, B)), ("Ks", (N, nu * nx, B)),
+              ("Ls", (N, nu * (nu + 1) // 2, B)), ("Ps", (N + 1, nx * nx, B)),
+              ("qx", (N + 1, nx, B)), ("qu", (N, nu, B)), ("c", (N, nx, B))]
+    return N, B, inputs, [(N, nu, B)], lambda: _config(nx, nu)
+
+
+def _solve_fwd_io(key, ins):
+    (nx, nu), (N, _, B) = _dims(*ins[:2]), ins[0].shape
+    inputs = [("A", (N, nx * nx, B)), ("Bm", (N, nx * nu, B)), ("Ks", (N, nu * nx, B)),
+              ("kff", (N, nu, B)), ("c", (N, nx, B)), ("dx0", (nx, B))]
+    return N, B, inputs, [(N + 1, nx, B), (N, nu, B)], lambda: _config(nx, nu)
+
+
+OPS = {
+    "riccati_factor": _build.define_op("riccati_factor", _factor_io, lambda key, ins, reg, _:
+                                       list(factor_plain(*ins, reg=reg))),
+    "riccati_solve_bwd": _build.define_op("riccati_solve_bwd", _solve_bwd_io,
+                                          lambda key, ins, *_: [solve_bwd_plain(*ins)]),
+    "riccati_solve_fwd": _build.define_op("riccati_solve_fwd", _solve_fwd_io,
+                                          lambda key, ins, *_: list(solve_fwd_plain(*ins))),
+}
+
+
+# --------------------------------------------------------------------------- #
+# Wrappers: the op (kernel on CUDA, plain version on the CPU), or the plain
+# version itself
 # --------------------------------------------------------------------------- #
 
 
@@ -153,17 +202,9 @@ def riccati_factor_fused(A, Bm, Qd, Rd, *, reg: float = 0.0,
     A [N, nx*nx, B], Bm [N, nx*nu, B], Qd [N+1, nx, B], Rd [N, nu, B].
     """
     ins = (A, Bm, Qd, Rd)
-    if not _build.use_kernel(ins, impl):
+    if not _build.use_op(ins, impl):
         return factor_plain(A, Bm, Qd, Rd, reg=reg)
-    nx, nu = _dims(A, Bm)
-    N, _, B = A.shape
-    config = _config(nx, nu)
-    _build.check([("A", A, (N, nx * nx, B)), ("Bm", Bm, (N, nx * nu, B)),
-                  ("Qd", Qd, (N + 1, nx, B)), ("Rd", Rd, (N, nu, B))])
-    out = RiccatiFactorsBM(Ps=A.new_empty((N + 1, nx * nx, B)), Ks=A.new_empty((N, nu * nx, B)),
-                           Ls=A.new_empty((N, nu * (nu + 1) // 2, B)))
-    _build.launch("riccati_factor", config, [*ins, *out], N, B, reg)
-    return out
+    return RiccatiFactorsBM(*OPS["riccati_factor"]("", ins, reg, 0.0))
 
 
 def riccati_solve_bwd_fused(A, Bm, Ks, Ls, Ps, qx, qu, c, *, impl: str = "kernel"):
@@ -174,18 +215,9 @@ def riccati_solve_bwd_fused(A, Bm, Ks, Ls, Ps, qx, qu, c, *, impl: str = "kernel
     c [N, nx, B].  Returns kff [N, nu, B].
     """
     ins = (A, Bm, Ks, Ls, Ps, qx, qu, c)
-    if not _build.use_kernel(ins, impl):
+    if not _build.use_op(ins, impl):
         return solve_bwd_plain(*ins)
-    nx, nu = _dims(A, Bm)
-    N, _, B = A.shape
-    config = _config(nx, nu)
-    _build.check([("A", A, (N, nx * nx, B)), ("Bm", Bm, (N, nx * nu, B)),
-                  ("Ks", Ks, (N, nu * nx, B)), ("Ls", Ls, (N, nu * (nu + 1) // 2, B)),
-                  ("Ps", Ps, (N + 1, nx * nx, B)), ("qx", qx, (N + 1, nx, B)),
-                  ("qu", qu, (N, nu, B)), ("c", c, (N, nx, B))])
-    kff = A.new_empty((N, nu, B))
-    _build.launch("riccati_solve_bwd", config, [*ins, kff], N, B)
-    return kff
+    return OPS["riccati_solve_bwd"]("", ins, 0.0, 0.0)[0]
 
 
 def riccati_solve_fwd_fused(A, Bm, Ks, kff, c, dx0, *, impl: str = "kernel"):
@@ -196,14 +228,6 @@ def riccati_solve_fwd_fused(A, Bm, Ks, kff, c, dx0, *, impl: str = "kernel"):
     dus [N, nu, B]).
     """
     ins = (A, Bm, Ks, kff, c, dx0)
-    if not _build.use_kernel(ins, impl):
+    if not _build.use_op(ins, impl):
         return solve_fwd_plain(*ins)
-    nx, nu = _dims(A, Bm)
-    N, _, B = A.shape
-    config = _config(nx, nu)
-    _build.check([("A", A, (N, nx * nx, B)), ("Bm", Bm, (N, nx * nu, B)),
-                  ("Ks", Ks, (N, nu * nx, B)), ("kff", kff, (N, nu, B)),
-                  ("c", c, (N, nx, B)), ("dx0", dx0, (nx, B))])
-    dxs, dus = A.new_empty((N + 1, nx, B)), A.new_empty((N, nu, B))
-    _build.launch("riccati_solve_fwd", config, [*ins, dxs, dus], N, B)
-    return dxs, dus
+    return tuple(OPS["riccati_solve_fwd"]("", ins, 0.0, 0.0))

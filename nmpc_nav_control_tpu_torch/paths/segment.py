@@ -13,11 +13,11 @@ Orientation semantics (reference ``PathDiscretizer.cpp:76-90``):
 """
 from __future__ import annotations
 
-import functools
-from typing import NamedTuple
-
 import numpy as np
 import torch
+
+from nmpc_nav_control_tpu_torch.tick_types import PathSegment
+from nmpc_nav_control_tpu_torch.utils.index import kept
 
 __all__ = [
     "ARC_SAMPLES",
@@ -42,30 +42,20 @@ DEG = 8
 ARC_SAMPLES = 256
 
 
-class PathSegment(NamedTuple):
-    """cx, cy, ch [..., DEG] coefficients, p(u) = sum_i c[i] u^i;
-    velocity [...] signed nominal velocity; frame_id [...] int32 frame code;
-    length [...] arc length."""
-
-    cx: torch.Tensor
-    cy: torch.Tensor
-    ch: torch.Tensor
-    velocity: torch.Tensor
-    frame_id: torch.Tensor
-    length: torch.Tensor
-
-
-@functools.lru_cache(maxsize=None)
 def jnp_linspace(n: int, dtype, device) -> torch.Tensor:
     """``jnp.linspace(0, 1, n)`` as JAX computes it: ``i * (1 / (n - 1))``
     in ``dtype`` for i < n - 1, then exactly 1 (``torch.linspace`` rounds
     differently by an ulp, which can move the discrete decisions built on
-    these grids).  Made once per (n, dtype, device), so only a tick's
-    first, uncaptured call makes it; callers must not write to it."""
-    div = n - 1
-    delta = torch.ones((), dtype=dtype, device=device) / div
-    head = torch.arange(div, dtype=dtype, device=device) * delta
-    return torch.cat([head, torch.ones(1, dtype=dtype, device=device)])
+    these grids).  Made once per (n, dtype, device) (``utils.index.kept``),
+    so only a tick's first, uncaptured call makes it; callers must not
+    write to it."""
+    def make():
+        div = n - 1
+        delta = torch.ones((), dtype=dtype, device=device) / div
+        head = torch.arange(div, dtype=dtype, device=device) * delta
+        return torch.cat([head, torch.ones(1, dtype=dtype, device=device)])
+
+    return kept(("linspace", n, dtype, device), make)
 
 
 def poly_eval(c, u):

@@ -21,12 +21,11 @@ upcoming, counted from head).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import torch
 
 from nmpc_nav_control_tpu_torch.paths.pathlist import PathList, take_rows
 from nmpc_nav_control_tpu_torch.paths.segment import DEG, PathSegment
+from nmpc_nav_control_tpu_torch.tick_types import PathWindow
 
 __all__ = ["PathWindow", "window_init", "ingest", "top_up", "pop_completed",
            "rotate_end_of_curve", "active_path_list", "active_length",
@@ -45,13 +44,6 @@ def select_rows(segs: PathSegment, idx) -> PathSegment:
     cap = segs.frame_id.shape[1]
     idx = idx.clamp(0, cap - 1)
     return PathSegment(*(take_rows(leaf, idx) for leaf in segs))
-
-
-class PathWindow(NamedTuple):
-    segs: PathSegment          # leaves [B, CAP, ...]
-    head: torch.Tensor         # [B] int32
-    active_count: torch.Tensor
-    total_count: torch.Tensor  # active + upcoming (counted from head)
 
 
 def window_init(capacity: int, batch: int, dtype=torch.float32, device="cuda") -> PathWindow:

@@ -40,7 +40,7 @@ import math
 
 import torch
 
-from nmpc_nav_control_tpu_torch.qp.linalg_small import cho_solve_small, cholesky_small
+from nmpc_nav_control_tpu_torch.ops.linalg_small import cho_solve_small, cholesky_small
 
 __all__ = ["plqr_solve", "stage_blocks"]
 
@@ -120,7 +120,7 @@ def stage_blocks(N: int, n_blocks: int) -> list[tuple[int, int]]:
 
 
 def plqr_solve(A, B, Qd, Rd, qx, qu, c, dx0, stage_devices=None):
-    """Solve the affine LQR of ``qp.riccati.lqr_solve`` with log-depth
+    """Solve the affine LQR of ``ops.riccati.lqr_solve`` with log-depth
     associative scans, for a batch.
 
     A [B, N, nx, nx], B [B, N, nx, nu], Qd [B, N+1, nx], Rd [B, N, nu],

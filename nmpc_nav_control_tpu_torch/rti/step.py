@@ -36,6 +36,7 @@ from nmpc_nav_control_tpu_torch.ocp.spec import OCPData, OCPDims
 from nmpc_nav_control_tpu_torch.ops.ipm_fused import dense_sparsity
 from nmpc_nav_control_tpu_torch.ops.linearize_packed import linearize_packed
 from nmpc_nav_control_tpu_torch.qp.ipm import BoxQP, solve_box_qp, tiled_ipm_ok
+from nmpc_nav_control_tpu_torch.tick_types import RTIState
 from nmpc_nav_control_tpu_torch.utils.angles import unwrap_angle
 from nmpc_nav_control_tpu_torch.utils.index import sel
 
@@ -57,15 +58,6 @@ class RTIConfig:
     adaptive_terminal_scale: float = 100.0
     ipm_reg: float = 1e-8
     spars: tuple | None = None
-
-
-class RTIState(NamedTuple):
-    """Warm-start state: xs [B, N+1, nx], us [B, N, nu], x0_carry [B, nx]
-    (next tick's initial state with the integrated reference entries)."""
-
-    xs: torch.Tensor
-    us: torch.Tensor
-    x0_carry: torch.Tensor
 
 
 class RTIStats(NamedTuple):

@@ -1,49 +1,44 @@
 """Host runtime of the port: config, messages, the single-robot node, the
-fixed-rate executor, the models config and solver preparation.
+fixed-rate executor, the models config, solver preparation and the tick
+artifacts (``aot``).
 
-The modules ``ingest``, ``simulation``, ``checkpoint``, ``native`` and
-``ros_bridge`` are imported by name.  The JAX package's ``aot`` is not
-ported yet (``ROADMAP.md``)."""
-from nmpc_nav_control_tpu_torch.runtime.config import RobotConfig, from_dict, load_config
-from nmpc_nav_control_tpu_torch.runtime.executor import RealTimeExecutor
-from nmpc_nav_control_tpu_torch.runtime.messages import (
-    ControlStatus,
-    FrameTable,
-    ParametricPath,
-    ParametricPathSet,
-    ParametricPathSet2,
-    PoseStamped,
-    PosePath,
-    Twist,
-    decode_path_set,
-    encode_path,
-    encode_path_set,
-)
-from nmpc_nav_control_tpu_torch.runtime.models_config import (
-    controller_from_models_params,
-    load_models_config,
-    prepare_solvers,
-)
-from nmpc_nav_control_tpu_torch.runtime.node import NmpcNavControlNode
+The names below are imported on first use (PEP 562), so that importing
+one module of this package, ``runtime.aot`` on a serving host above all,
+does not import the others and the model code behind them.  The modules
+``ingest``, ``simulation``, ``checkpoint``, ``native`` and ``ros_bridge``
+are imported by name."""
+import importlib
 
-__all__ = [
-    "ControlStatus",
-    "FrameTable",
-    "NmpcNavControlNode",
-    "ParametricPath",
-    "ParametricPathSet",
-    "ParametricPathSet2",
-    "PoseStamped",
-    "PosePath",
-    "RealTimeExecutor",
-    "RobotConfig",
-    "Twist",
-    "controller_from_models_params",
-    "decode_path_set",
-    "encode_path",
-    "encode_path_set",
-    "from_dict",
-    "load_config",
-    "load_models_config",
-    "prepare_solvers",
-]
+_MODULE_OF = {
+    "AotTick": "aot",
+    "ControlStatus": "messages",
+    "FrameTable": "messages",
+    "NmpcNavControlNode": "node",
+    "ParametricPath": "messages",
+    "ParametricPathSet": "messages",
+    "ParametricPathSet2": "messages",
+    "PoseStamped": "messages",
+    "PosePath": "messages",
+    "RealTimeExecutor": "executor",
+    "RobotConfig": "config",
+    "Twist": "messages",
+    "controller_from_models_params": "models_config",
+    "decode_path_set": "messages",
+    "encode_path": "messages",
+    "encode_path_set": "messages",
+    "export_tick": "aot",
+    "from_dict": "config",
+    "load_config": "config",
+    "load_models_config": "models_config",
+    "load_tick": "aot",
+    "prepare_solvers": "models_config",
+    "save_tick": "aot",
+}
+
+__all__ = sorted(_MODULE_OF)
+
+
+def __getattr__(name):
+    if name not in _MODULE_OF:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{_MODULE_OF[name]}"), name)

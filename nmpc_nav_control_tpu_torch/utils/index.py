@@ -8,19 +8,42 @@ bounded index set of the diff, omni4 and tric models is one) and otherwise
 an index tensor; ``index_tensor`` makes each index tensor once per
 (indices, device) and keeps it, so only a tick's first, uncaptured call
 (a graph's warm-up) makes it.
+
+``kept`` is that cache.  It keeps only real tensors: under a tracer
+(``torch.export``'s fake mode, functionalization) a factory call returns a
+tensor of the tracer's, which would poison every later eager tick if it
+were kept; the tracer gets a fresh one each time, and export lifts it into
+the program as a constant.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
-__all__ = ["index_tensor", "mask_tensor", "sel", "static_index"]
+__all__ = ["index_tensor", "kept", "mask_tensor", "nz_positions", "sel", "static_index"]
+
+_kept: dict = {}
+
+
+def kept(key, make) -> torch.Tensor:
+    """The tensor kept under ``key``, made by ``make()`` at first use; a
+    tensor made under a tracing mode (any subclass of ``torch.Tensor``) is
+    returned and not kept.  Callers must not write to it."""
+    t = _kept.get(key)
+    if t is None:
+        t = make()
+        if type(t) is torch.Tensor:
+            _kept[key] = t
+    return t
 
 
 def static_index(idx) -> tuple:
     """A model's index set (``idxbx``, ``idxbu``) as a tuple of Python ints."""
     return tuple(int(i) for i in idx)
+
+
+def nz_positions(sp):
+    """Row-major list of (i, j) structural nonzeros of a pattern."""
+    return [(i, j) for i, row in enumerate(sp) for j, nz in enumerate(row) if nz]
 
 
 def sel(idx, device):
@@ -32,13 +55,13 @@ def sel(idx, device):
     return index_tensor(idx, device)
 
 
-@functools.lru_cache(maxsize=None)
 def index_tensor(idx: tuple, device) -> torch.Tensor:
     """``idx`` as an int64 tensor on ``device``, made once."""
-    return torch.tensor(idx, dtype=torch.long, device=device)
+    return kept(("index", idx, device),
+                lambda: torch.tensor(idx, dtype=torch.long, device=device))
 
 
-@functools.lru_cache(maxsize=None)
 def mask_tensor(mask: tuple, device) -> torch.Tensor:
     """A nested tuple of bools as a bool tensor on ``device``, made once."""
-    return torch.tensor(mask, dtype=torch.bool, device=device)
+    return kept(("mask", mask, device),
+                lambda: torch.tensor(mask, dtype=torch.bool, device=device))

@@ -7,6 +7,8 @@ On the CPU (``--device cpu``, f32 as the JAX CLI runs):
 - ``run --no-rt`` on a small runtime YAML (N=10), to a goal and on a path:
   the JAX CLI's lines, numbers within 2e-3, except the timing line, where
   the cycle count and the budget are compared;
+- ``export --platform cpu`` prints the JAX CLI's line and writes an
+  artifact that ``runtime.aot.load_tick`` loads;
 (Without a card the default device and ``--device cuda`` raise:
 ``test_torch_no_jax.py``.)
 
@@ -136,6 +138,26 @@ def test_cli_run_matches_jax(tmp_path, capsys, monkeypatch, mode):
     assert trc == jrc == 0
     _same_lines(tout, jout)
     assert "goal reached -> Idle" in tout
+
+
+def test_cli_export_roundtrip(tmp_path, capsys):
+    """``export`` writes an artifact that ``runtime.aot.load_tick`` loads and
+    runs, and prints the JAX CLI's line (``tests/test_cli.py``)."""
+    from nmpc_nav_control_tpu.__main__ import main as jax_main
+    from nmpc_nav_control_tpu_torch.runtime.aot import load_tick
+
+    cfg = _write(tmp_path, "runtime.yaml", TINY_RUNTIME_YAML)
+    out, jax_out = tmp_path / "tick.aot", tmp_path / "jax_tick.aot"
+    lines = []
+    for main, path in ((port_main, out), (jax_main, jax_out)):
+        assert main(["export", "--config", cfg, "-o", str(path), "--platform", "cpu"]) == 0
+        lines.append([line.replace(str(path), "PATH")
+                      for line in capsys.readouterr().out.splitlines()])
+    assert lines[0] == lines[1] == [
+        "exported diff tick (N=10, batch=None, platforms=['cpu']) -> PATH"]
+    aot = load_tick(out.read_bytes(), device="cpu")
+    assert aot.meta["geometry"] == "diff" and aot.meta["horizon"] == 10
+    assert aot.meta["platforms"] == ["cpu"] and aot.meta["batch"] is None
 
 
 # --------------------------------------------------------------------------- #

@@ -35,7 +35,10 @@ installed):
   FollowPath, Break, invalid input) with events between replays, diff on
   the default route and omni4 and tric on the Riccati route, with the
   capture's launch counts exactly one controller tick's; ``reset`` makes
-  every lane an idle node.
+  every lane an idle node;
+- a tick artifact exported for the card (``runtime/aot.py``), loaded,
+  equals a ``GraphedNavigator`` bit for bit on both routes, its capture
+  launching one controller tick's kernels.
 """
 import ast
 import collections
@@ -466,3 +469,38 @@ def _tensors(tree):
     if isinstance(tree, tuple):
         return [t for v in tree for t in _tensors(v)]
     return [tree]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["1", "0"])
+def test_aot_tick_on_the_card(cuda_device, route, monkeypatch):
+    """A tick artifact for the card (``runtime/aot.py``), exported and
+    loaded: its first call captures one controller tick's launches, and
+    over chained ticks it equals a ``GraphedNavigator`` of the same config
+    bit for bit."""
+    from nmpc_nav_control_tpu_torch.runtime import aot
+    from nmpc_nav_control_tpu_torch.runtime.config import from_dict
+
+    monkeypatch.setenv("NMPC_TPU_TILED_IPM", route)
+    config = from_dict(dict(
+        steering_geometry="diff", tf_ini=0.25, rob_dist_between_wh=0.27,
+        rob_wh_vel_time_const=0.1, rob_wh_max_vel=1.0, rob_wh_max_ace=2.0,
+        cost_matrix_weights_state_diag=[10.0, 10.0, 5.0, 0, 0, 0, 0],
+        cost_matrix_weights_input_diag=[1.0, 1.0]))
+    tick = aot.load_tick(aot.export_tick(config, batch=2, platforms=("cuda",)))
+    spec, data = make_controller("diff", config.dt, config.horizon, **config.controller_kwargs())
+    nav = GraphedNavigator(spec, data, config.nav, 2)
+    state = sm.on_goal_pose(sm.node_init(spec, config.nav, 2),
+                            torch.tensor([0.5, 0.1, 0.0], device=cuda_device))
+    nav.load_state(state)
+    flag = torch.ones(2, dtype=torch.bool, device=cuda_device)
+    for k in range(4):
+        pose = torch.tensor([[0.02 * k, 0.0, 0.0], [0.0, 0.01 * k, 0.05]], device=cuda_device)
+        meas = sm.Measurements(pose, torch.zeros_like(pose), torch.zeros(2, device=cuda_device),
+                               flag, flag, flag)
+        want = nav.step(meas)
+        state, out = tick(state, meas)
+        for g, w in zip(aot._leaves((state, out)), aot._leaves(want)):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    assert tick.capture_launches == PER_TICK[route]
+    assert bool(out.solve_ok.all())

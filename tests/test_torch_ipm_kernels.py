@@ -10,6 +10,10 @@ first are the JAX kernels' outputs, so every comparison isolates one kernel.
 Tolerance rtol 1e-4 / atol 1e-5: same algorithm and conventions, so only the
 f32 summation order differs.
 
+Each sweep is also held as a ``torch.library`` op (``nmpc_tpu::<kernel>``)
+on the CPU: ``opcheck``, its outputs equal to the plain version's bit for
+bit, and one node in an exported program.
+
 The ``gpu`` tests hold each CUDA kernel against its plain version on the
 card and skip where there is none.  JAX is imported only by the fixture that
 needs it, so the ``gpu`` tests also run where JAX is not installed (with
@@ -21,6 +25,7 @@ import torch
 
 from nmpc_nav_control_tpu_torch.models import diff
 from nmpc_nav_control_tpu_torch.ocp.sparsity import detect_jacobian_sparsity
+from nmpc_nav_control_tpu_torch.ops import _build
 from nmpc_nav_control_tpu_torch.ops import ipm_fused as tp
 from nmpc_nav_control_tpu_torch.ops._build import header_config
 from torch_sweep_inputs import random_sweep_inputs
@@ -366,6 +371,89 @@ def test_wrappers_route_by_device():
     args[0] = args[0].to("meta")
     with pytest.raises(ValueError):
         tp.ipm_bwd_fused(cfg, *args, reg=REG, d_cap=D_CAP)
+
+
+# --------------------------------------------------------------------------- #
+# The sweeps as torch.library ops (nmpc_tpu::<kernel>), on the CPU
+# --------------------------------------------------------------------------- #
+
+
+def _op_calls(cfg, x):
+    """Per op: (flat operands, f0, f1, the plain version's flat outputs)."""
+    A, Bm, Qd, Rd, qx, qu, c, dx, du, s, lam, bnd = _bwd_args(x)
+    r_init, sigma_mu = _t(x["r_init"]), _t(x["sigma_mu"])
+    bwd = tp.bwd_fused_plain(cfg, A, Bm, Qd, Rd, qx, qu, c, dx, du, s, lam, bnd, reg=REG,
+                             d_cap=D_CAP)
+    corr = tp.fwd_affine_plain(cfg, A, Bm, bwd.K, bwd.kff, bwd.rdyn, r_init, s, lam, bwd.rp,
+                               tau=TAU).corr
+    fwd = (A, Bm, bwd.K, bwd.kff, bwd.rdyn, r_init, *s, *lam, *bwd.rp)
+    return {
+        "ipm_bwd_fused": ([A, Bm, Qd, Rd, qx, qu, c, dx, du, *s, *lam, *bnd], REG, D_CAP, bwd),
+        "ipm_fwd_affine": (list(fwd), TAU, 0.0, tp.fwd_affine_plain(
+            cfg, A, Bm, bwd.K, bwd.kff, bwd.rdyn, r_init, s, lam, bwd.rp, tau=TAU)),
+        "ipm_bwd_corr": ([A, Bm, bwd.K, bwd.L, bwd.Pc, Qd, qx, dx, Rd, qu, du, *s, *lam,
+                          *bwd.rp, *corr, sigma_mu], 0.0, 0.0, tp.bwd_corr_plain(
+            cfg, A, Bm, bwd.K, bwd.L, bwd.Pc, Qd, qx, dx, Rd, qu, du, s, lam, bwd.rp, corr,
+            sigma_mu)),
+        "ipm_fwd_corr": ([*fwd, *corr, sigma_mu], TAU, 0.0, tp.fwd_corr_plain(
+            cfg, A, Bm, bwd.K, bwd.kff, bwd.rdyn, r_init, s, lam, bwd.rp, corr, sigma_mu,
+            tau=TAU)),
+        "ipm_kkt_fused": ([A, Bm, Qd, qx, dx, Rd, qu, du, *lam, *s], 0.0, 0.0,
+                          tp.kkt_fused_plain(cfg, A, Bm, Qd, qx, dx, Rd, qu, du, lam, s)),
+    }
+
+
+def check_op(op, args, plain_out):
+    """``torch.library.opcheck`` (schema, fake against real, the aliasing
+    rules), and the op's CPU outputs equal to the plain version's bit for
+    bit, in value, shape, dtype and strides."""
+    torch.library.opcheck(op, args)
+    got = op(*args)
+    want = tp._flat(plain_out)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and g.is_contiguous()
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name", list(tp.OPS))
+@pytest.mark.parametrize("pattern,lanes,dtype", [("diff", 1, torch.float32),
+                                                 ("dense", 5, torch.float32),
+                                                 ("diff", 5, torch.float64)])
+def test_sweep_ops_on_the_cpu(name, pattern, lanes, dtype):
+    asp, bsp = PATTERNS[pattern]
+    cfg = tp.SweepConfig(NX, NU, IDXBX, IDXBU, asp, bsp)
+    assert tp.SweepConfig.from_key(cfg.key) == cfg
+    x = random_sweep_inputs(NX, NU, 2, 2, asp, bsp, N, lanes, seed=lanes)
+    npd = np.float64 if dtype == torch.float64 else np.float32
+    x = {k: tuple(a.astype(npd) for a in v) if isinstance(v, tuple) else v.astype(npd)
+         for k, v in x.items()}
+    ins, f0, f1, plain_out = _op_calls(cfg, x)[name]
+    check_op(getattr(torch.ops.nmpc_tpu, name).default, (cfg.key, ins, f0, f1), plain_out)
+
+
+def test_a_traced_sweep_is_one_op_node():
+    """Under ``torch.export`` a wrapper records its op, whose CPU
+    implementation is the plain version; eager CPU calls take the plain
+    version itself (``_build.use_op``)."""
+    asp, bsp = DIFF_SP
+    cfg = tp.SweepConfig(NX, NU, IDXBX, IDXBU, asp, bsp)
+    x = random_sweep_inputs(NX, NU, 2, 2, asp, bsp, N, 3, seed=3)
+    A, Bm, Qd, Rd, qx, qu, c, dx, du, s, lam, _ = _bwd_args(x)
+    assert not _build.use_op([A], "kernel") and not _build.use_op([A], "plain")
+
+    class Kkt(torch.nn.Module):
+        def forward(self, A, Bm, Qd, qx, dx, Rd, qu, du, *ls):
+            return tuple(tp.ipm_kkt_fused(cfg, A, Bm, Qd, qx, dx, Rd, qu, du, ls[:4], ls[4:],
+                                          impl="plain"))
+
+    args = (A, Bm, Qd, qx, dx, Rd, qu, du, *lam, *s)
+    program = torch.export.export(Kkt(), args, strict=False)
+    calls = [n.target for n in program.graph.nodes if n.op == "call_function"]
+    assert calls.count(torch.ops.nmpc_tpu.ipm_kkt_fused.default) == 1
+    assert all("aten" not in str(t) for t in calls), calls
+    want = tp.kkt_fused_plain(cfg, A, Bm, Qd, qx, dx, Rd, qu, du, lam, s)
+    assert all(torch.equal(g, w) for g, w in zip(program.module()(*args), want))
 
 
 # --------------------------------------------------------------------------- #

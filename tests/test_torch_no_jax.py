@@ -4,7 +4,8 @@ In a subprocess where ``import jax`` fails, the port is imported and one
 batched controller tick runs for each geometry on each IPM route (the fused
 sweeps and the Riccati solve), then one navigation tick (``node_tick``, on a
 path and on a goal) for each geometry, one tick of the runtime's node, and
-the command line's ``run`` for 3 ticks on the CPU, which between them and
+the command line's ``run`` for 3 ticks and ``export`` for the CPU, the
+artifact loaded (``runtime/aot.py``) and ticked once, which between them and
 the host runtime's imports (executor, ingest, simulation, checkpoint,
 native, models config, ROS bridge, profiling), the stage-parallel and
 2-D mesh solves, a fleet tick on a mesh and both simulation demos import
@@ -37,7 +38,7 @@ import torch
 torch.set_num_threads(1)
 from nmpc_nav_control_tpu_torch.control import controller_init, controller_step, make_controller
 import nmpc_nav_control_tpu_torch.convert
-import nmpc_nav_control_tpu_torch.qp.riccati
+import nmpc_nav_control_tpu_torch.ops.riccati
 GEOMETRIES = (("diff", dict(dist_b=0.27, q_diag=[1.0] * 7, r_diag=[1.0] * 2)),
               ("omni4", dict(l1_plus_l2=0.535, q_diag=[1.0] * 11, r_diag=[1.0] * 4)),
               ("tric", dict(dist_d=1.05, alpha_min=-1.0, alpha_max=1.0,
@@ -128,6 +129,26 @@ assert bool(tick.solve_ok.all()) and tick.status_code.tolist() == [1, 1, 1]
 with contextlib.redirect_stdout(io.StringIO()):
     sim_pose_goal.main(["diff", "--device", "cpu", "--ticks", "2", "--horizon", "10"])
     sim_follow_path.main(["--device", "cpu", "--ticks", "2"])
+with contextlib.redirect_stdout(io.StringIO()):
+    rc = main(["export", "--config", {runtime_yaml!r}, "-o", {artifact!r}, "--platform", "cpu"])
+assert rc == 0
+from nmpc_nav_control_tpu_torch.runtime.aot import load_tick
+tick = load_tick(open({artifact!r}, "rb").read(), device="cpu")
+config = runtime.load_config({runtime_yaml!r})
+spec, _ = make_controller("diff", config.dt, config.horizon, device="cpu",
+                          **config.controller_kwargs())
+
+
+def lane(x):
+    return type(x)(*(lane(v) for v in x)) if isinstance(x, tuple) else x[0]
+
+
+flag = torch.ones(1, dtype=torch.bool)
+_, out = tick(lane(sm.on_goal_pose(sm.node_init(spec, config.nav, 1, device="cpu"),
+                                   torch.tensor([0.3, 0.0, 0.0]))),
+              lane(sm.Measurements(torch.zeros(1, 3), torch.zeros(1, 3), torch.zeros(1), flag,
+                                   flag, flag)))
+assert bool(out.solve_ok) and int(out.status_code) == 1 and tick.meta["horizon"] == 10
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m] is not None)
 print("ok", float(cmd.v[0]))
 """
@@ -150,7 +171,8 @@ def test_port_imports_and_ticks_without_jax(tmp_path):
     runtime_yaml = tmp_path / "runtime.yaml"
     runtime_yaml.write_text(RUNTIME_YAML)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    script = SCRIPT.format(root=ROOT, runtime_yaml=str(runtime_yaml))
+    script = SCRIPT.format(root=ROOT, runtime_yaml=str(runtime_yaml),
+                           artifact=str(tmp_path / "tick.aot"))
     proc = subprocess.run([sys.executable, "-c", script],
                           capture_output=True, text=True, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -177,9 +199,10 @@ def test_no_module_of_the_port_imports_jax():
 
 
 def test_prepare_and_cli_default_to_the_card(tmp_path):
-    """Without a device argument ``prepare_solvers`` and both subcommands
+    """Without a device argument ``prepare_solvers`` and the subcommands
     run on the card; on a machine without one they raise rather than carry
-    on on the CPU, with the default and with ``--device cuda``."""
+    on on the CPU, with the default and with ``--device cuda`` (``export``'s
+    default platforms include the card's)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default works")
     from nmpc_nav_control_tpu_torch.__main__ import main
@@ -192,7 +215,8 @@ def test_prepare_and_cli_default_to_the_card(tmp_path):
         prepare_solvers(models, log=lambda *_: None)
     for argv in (["run", "--config", str(runtime_yaml)],
                  ["run", "--config", str(runtime_yaml), "--device", "cuda"],
-                 ["prepare", models], ["prepare", models, "--device", "cuda"]):
+                 ["prepare", models], ["prepare", models, "--device", "cuda"],
+                 ["export", "--config", str(runtime_yaml), "-o", str(tmp_path / "tick.aot")]):
         with pytest.raises(RuntimeError, match="CUDA"):
             main(argv)
 

@@ -23,7 +23,7 @@ from nmpc_nav_control_tpu.qp.parallel_riccati import plqr_solve as jplqr
 from nmpc_nav_control_tpu_torch.ops import ipm_fused, riccati_fused
 from nmpc_nav_control_tpu_torch.qp import BoxQP, ipm, ipm_batched, solve_box_qp
 from nmpc_nav_control_tpu_torch.qp.parallel_riccati import plqr_solve, stage_blocks
-from nmpc_nav_control_tpu_torch.qp.riccati import lqr_solve
+from nmpc_nav_control_tpu_torch.ops.riccati import lqr_solve
 
 torch.set_num_threads(1)
 

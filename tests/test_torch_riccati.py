@@ -1,6 +1,6 @@
 """The port's Riccati modules and kernels against the JAX package.
 
-- ``qp/linalg_small.py`` and ``qp/riccati.py`` (plain torch, batch-explicit)
+- ``ops/linalg_small.py`` and ``ops/riccati.py`` (plain torch, batch-explicit)
   and the routed wrappers of ``ops/riccati_fused.py`` (the batched entry
   points, reached through ``to_bm`` / ``from_bm``) against ``jax.vmap`` of
   ``nmpc_nav_control_tpu/qp/{linalg_small,riccati}.py`` on the same numpy
@@ -14,6 +14,8 @@
 - The plain versions against Pallas on lanes with a non-positive Quu pivot,
   a NaN in c and an Inf in qx (``add_riccati_faults``): NaN and Inf in the
   same places, N=6, B=1024.
+- Each kernel as a ``torch.library`` op (``nmpc_tpu::<kernel>``) on the
+  CPU: ``opcheck`` and its outputs equal to the plain version's bit for bit.
 - ``gpu``: each CUDA kernel against its plain version on the card, at N = 1,
   13 and 40 and B = 1, 17, 1000, 2048, the faulty lanes included; skips
   without a card.  JAX is imported only by the fixtures that need it, so
@@ -24,7 +26,7 @@ import pytest
 import torch
 
 from nmpc_nav_control_tpu_torch.ops import riccati_fused as rf
-from nmpc_nav_control_tpu_torch.qp import linalg_small, riccati
+from nmpc_nav_control_tpu_torch.ops import linalg_small, riccati
 from torch_sweep_inputs import (
     INF_QX_LANE,
     NAN_C_LANE,
@@ -274,6 +276,34 @@ def test_wrappers_route_by_device():
 # --------------------------------------------------------------------------- #
 # CUDA kernels vs their plain versions (on the card only)
 # --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("name", list(rf.OPS))
+@pytest.mark.parametrize("nx,nu,lanes,dtype", [(7, 2, 1, torch.float32),
+                                               (11, 4, 5, torch.float32),
+                                               (7, 2, 5, torch.float64)])
+def test_riccati_ops_on_the_cpu(name, nx, nu, lanes, dtype):
+    """Each kernel as a ``torch.library`` op (``nmpc_tpu::<kernel>``) on the
+    CPU: ``opcheck``, and its outputs equal to the plain version's bit for
+    bit."""
+    x = {k: torch.from_numpy(v).to(dtype) for k, v in
+         random_riccati_inputs(nx, nu, 6, lanes, seed=lanes).items()}
+    A, Bm = x["A"], x["Bm"]
+    f = rf.factor_plain(A, Bm, x["Qd"], x["Rd"], reg=1e-8)
+    kff = rf.solve_bwd_plain(A, Bm, f.Ks, f.Ls, f.Ps, x["qx"], x["qu"], x["c"])
+    ins, f0, want = {
+        "riccati_factor": ([A, Bm, x["Qd"], x["Rd"]], 1e-8, list(f)),
+        "riccati_solve_bwd": ([A, Bm, f.Ks, f.Ls, f.Ps, x["qx"], x["qu"], x["c"]], 0.0, [kff]),
+        "riccati_solve_fwd": ([A, Bm, f.Ks, kff, x["c"], x["dx0"]], 0.0,
+                              list(rf.solve_fwd_plain(A, Bm, f.Ks, kff, x["c"], x["dx0"]))),
+    }[name]
+    op = getattr(torch.ops.nmpc_tpu, name).default
+    torch.library.opcheck(op, ("", ins, f0, 0.0))
+    got = op("", ins, f0, 0.0)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == dtype and g.shape == w.shape and g.is_contiguous()
+        assert torch.equal(g, w)
 
 
 @pytest.fixture
