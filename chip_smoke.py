@@ -155,7 +155,26 @@ It imports nothing of JAX.  Phases, each printing one line per result:
      default-route and Riccati artifacts loaded on the CPU, 3 ticks equal
      to the port's CPU eager tick bit for bit.  The loading processes
      deserialize and run the CPU platform in parallel, then take the card
-     one at a time with nothing else running.
+     one at a time with nothing else running;
+ 15. the measurement surface: the bench's headline path in this process
+     (``nmpc_nav_control_tpu_torch/bench.py::_measure_config``, diff N=40
+     B=2048) with the launch counts set to 0 just before, exactly two
+     warm-up ticks' and the capture's launches; (a) ``python -m
+     nmpc_nav_control_tpu_torch bench`` (the full sweep, ``BENCH_REPS`` 10)
+     in a subprocess: exactly ``bench.py``'s twelve records in its order
+     (the ten configurations, the B=1 latency and the fleet line, the
+     headline last), each config naming this card, every value positive
+     and finite, every ``hbm_roofline_frac`` and ``f32_peak_frac`` <= 1,
+     the per-solve time not falling from N=40 to N=80 at a fixed geometry
+     and B, ``BENCH_torch.json`` written with those records and
+     ``BENCH.json``'s bytes unchanged; the headline's ms per batch tick,
+     the B=1 latency and the fleet's ms per tick each within 15% of phase
+     3's graphed B=2048 and B=1 ticks and phase 11's graphed B=2048 node
+     tick, the pairs printed; (b) ``python -m nmpc_nav_control_tpu_torch.
+     bench_scaling`` prints its ``skipped`` line on one card and exits 0;
+     (c) ``tools.phase_probe diff 40 2048`` and ``tools.node_probe diff 40
+     2048``, every line printed, ``full_tick`` and ``node_tick`` within 15%
+     of (a)'s headline and fleet figures.
 
 Any failure raises, and the script exits non-zero.  Before the last line it
 prints the kernels as one JSON object (each with its bound: the bytes it
@@ -170,6 +189,7 @@ import ast
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -1892,6 +1912,167 @@ def _aot_pair(torch, c, ref, smi):
     return dict(nav_ms=[ms[0], ms[3]], loaded_ms=[ms[1], ms[2]], ratio=ratio)
 
 
+# ---- Phase 15: the measurement surface. ----
+
+# bench.py's full sweep, in its order: the ten configurations of its
+# ``configs`` list, then the latency and fleet lines, the headline last.
+BENCH_RECORDS = [
+    ("nmpc_solves_per_s_per_chip_N40", "diff", 40, 4096),
+    ("nmpc_solves_per_s_per_chip_N80", "diff", 80, 2048),
+    ("nmpc_solves_per_s_per_chip_N80", "diff", 80, 4096),
+    ("nmpc_solves_per_s_per_chip_N40_omni4", "omni4", 40, 2048),
+    ("nmpc_solves_per_s_per_chip_N40_omni4", "omni4", 40, 4096),
+    ("nmpc_solves_per_s_per_chip_N80_omni4", "omni4", 80, 2048),
+    ("nmpc_solves_per_s_per_chip_N40_tric", "tric", 40, 2048),
+    ("nmpc_solves_per_s_per_chip_N40_tric", "tric", 40, 4096),
+    ("nmpc_solves_per_s_per_chip_N80_tric", "tric", 80, 2048),
+    ("single_robot_tick_latency_ms_N40", "diff", 40, 1),
+    ("fleet_nav_ticks_per_s_per_chip_N40", "diff", 40, 2048),
+    ("nmpc_solves_per_s_per_chip_N40", "diff", 40, 2048),
+]
+XCHECK_TOL = 0.15                # the bench and the probes against phases 3 and 11
+BENCH_REPS_SMOKE = "10"          # bench.py's default
+
+
+def _module(args, timeout, **env):
+    """Run ``python -m <args>`` from the checkout with ``env`` set (every
+    other ``BENCH_*`` variable cleared); raise unless it exits 0.  Returns
+    its standard output's lines."""
+    full = {k: v for k, v in os.environ.items()
+            if k != "PYTHONPATH" and not k.startswith("BENCH_")}
+    full.update(env)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=full,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 15 {' '.join(args)}: rc {proc.returncode}\n"
+                             f"{proc.stdout}\n{proc.stderr[-4000:]}")
+    print(f"phase 15 {' '.join(args)}: {time.perf_counter() - t0:.1f} s")
+    return proc.stdout.splitlines()
+
+
+def _near(what, got, want):
+    """Print the pair; raise unless ``got`` is within XCHECK_TOL of ``want``."""
+    print(f"phase 15 cross-check {what}: {got:.4f} ms against {want:.4f} ms "
+          f"(ratio {got / want:.4f})")
+    if not abs(got / want - 1.0) <= XCHECK_TOL:
+        raise AssertionError(f"phase 15 {what}: {got:.4f} ms is not within "
+                             f"{100 * XCHECK_TOL:.0f}% of {want:.4f} ms")
+
+
+def _bench_path_launches(torch, dev):
+    """The bench's headline path in this process (``bench._measure_config``
+    for diff, N=40, B=2048, chains of 1 and 3 replays): with the launch
+    counts set to 0 just before, exactly two warm-up ticks' and the
+    capture's launches (replays count nothing)."""
+    from nmpc_nav_control_tpu_torch import bench as tbench
+    from nmpc_nav_control_tpu_torch.ops import _build
+
+    _build.reset_launch_counts()
+    per_step = tbench._measure_config("diff", N, 2048, 2, 1, 3, dev)[0]
+    counts = _build.launch_counts()
+    want = {k: 3 * v for k, v in PER_TICK.items()}
+    print(f"phase 15 bench path diff N={N} B=2048 in this process: launches {counts} "
+          f"(two warm-up ticks and the capture), {per_step * 1e3:.4f} ms a tick")
+    if counts != want:
+        raise AssertionError(f"phase 15 bench path: launches {counts}, expected {want}")
+    return counts
+
+
+def _phase_measure(torch, dev, smi, controller_ms, nav_ms):
+    """Phase 15; ``controller_ms`` holds phase 3's graphed controller ticks
+    by B, ``nav_ms`` phase 11's graphed diff B=2048 node tick."""
+    import hashlib
+
+    t0 = time.perf_counter()
+    out = {"launches": _bench_path_launches(torch, dev)}
+
+    # (a) the bench's full sweep, as a user runs it.
+    bench_json = os.path.join(ROOT, "BENCH.json")
+
+    def digest():
+        if not os.path.exists(bench_json):
+            return None
+        with open(bench_json, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    torch_json = os.path.join(ROOT, "BENCH_torch.json")
+    if os.path.exists(torch_json):
+        os.remove(torch_json)
+    before = digest()
+    lines = _module(["nmpc_nav_control_tpu_torch", "bench"], 900, BENCH_SWEEP="full",
+                    BENCH_REPS=BENCH_REPS_SMOKE)
+    recs = [json.loads(line) for line in lines]
+    for r in recs:
+        print(f"phase 15 bench (BENCH_REPS={BENCH_REPS_SMOKE}) | {json.dumps(r)}")
+    faults = []
+    if [r.get("metric") for r in recs] != [m for m, *_ in BENCH_RECORDS]:
+        faults.append(f"metrics {[r.get('metric') for r in recs]}")
+    else:
+        for r, (_, geom, n, lanes) in zip(recs, BENCH_RECORDS):
+            c = r.get("config", {})
+            if (c.get("geometry"), c.get("N"), c.get("batch"), c.get("device")) != (
+                    geom, n, lanes, smi):
+                faults.append(f"{r['metric']} config {c}")
+            if not (isinstance(r.get("value"), (int, float)) and math.isfinite(r["value"])
+                    and r["value"] > 0):
+                faults.append(f"{r['metric']} B={lanes} value {r.get('value')}")
+            for key in ("hbm_roofline_frac", "f32_peak_frac"):
+                if key in r and not r[key] <= 1.0:
+                    faults.append(f"{r['metric']} B={lanes} {key} {r[key]}")
+    if digest() != before:
+        faults.append("BENCH.json changed")
+    if not os.path.exists(torch_json):
+        faults.append("no BENCH_torch.json")
+    elif json.load(open(torch_json))["records"] != recs:
+        faults.append("BENCH_torch.json holds other records than were printed")
+    if faults:
+        raise AssertionError(f"phase 15 bench: {'; '.join(faults)}")
+    ms = {}                                       # (geometry, N, B) -> ms per solve
+    for r, (_, geom, n, lanes) in zip(recs, BENCH_RECORDS):
+        if "solves" in r["metric"]:
+            ms[geom, n, lanes] = 1e3 / r["value"]
+    for geom, lanes in (("diff", 2048), ("diff", 4096), ("omni4", 2048), ("tric", 2048)):
+        a, b = ms[geom, 40, lanes], ms[geom, 80, lanes]
+        print(f"phase 15 bench {geom} B={lanes}: {1e3 * a:.4f} us a solve at N=40, "
+              f"{1e3 * b:.4f} at N=80 (ratio {b / a:.3f})")
+        if not b >= a:
+            raise AssertionError(f"phase 15 bench {geom} B={lanes}: the per-solve time falls "
+                                 f"from N=40 to N=80")
+    head, latency, fleet = recs[-1], recs[-3], recs[-2]
+    head_ms, fleet_ms = 2048e3 / head["value"], 2048e3 / fleet["value"]
+    _near("headline ms per batch tick vs phase 3 graphed B=2048 tick", head_ms,
+          controller_ms["2048"])
+    _near("B=1 latency vs phase 3 graphed B=1 tick", latency["value"], controller_ms["1"])
+    _near("fleet ms per tick vs phase 11 graphed B=2048 node tick", fleet_ms, nav_ms)
+    out["bench"] = recs
+
+    # (b) the scaling sweep on one card: its skipped line.
+    lines = _module(["nmpc_nav_control_tpu_torch.bench_scaling"], 120)
+    skipped = json.loads(lines[-1])
+    print(f"phase 15 bench_scaling | {lines[-1]}")
+    if len(lines) != 1 or skipped.get("skipped") is not True or "TPU" in skipped["reason"]:
+        raise AssertionError(f"phase 15 bench_scaling: {lines}")
+
+    # (c) the probes at the headline and fleet configurations.
+    out["probes"] = {}
+    for probe, first, want in (("phase_probe", "full_tick", head_ms),
+                               ("node_probe", "node_tick", fleet_ms)):
+        lines = _module([f"nmpc_nav_control_tpu_torch.tools.{probe}", "diff", str(N), "2048"],
+                        300, BENCH_REPS=BENCH_REPS_SMOKE)
+        phases = [json.loads(line) for line in lines]
+        for r in phases:
+            print(f"phase 15 {probe} | {json.dumps(r)}")
+        out["probes"][probe] = phases
+        if phases[0]["phase"] != first or not all(math.isfinite(r["per_batch_ms"])
+                                                   for r in phases):
+            raise AssertionError(f"phase 15 {probe}: {phases}")
+        _near(f"{probe} {first} vs (a)'s figure", phases[0]["per_batch_ms"], want)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 15: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2269,6 +2450,12 @@ def main() -> int:
 
     # ---- Phase 14: the AOT tick artifacts. ----
     record["aot"] = _phase_aot(torch, dev, smi)
+
+    # ---- Phase 15: the bench, the scaling sweep and the probes. ----
+    _set_route("1")
+    record["measure"] = _phase_measure(torch, dev, smi,
+                                       {"2048": wide["graphed_ms"], "1": one["graphed_ms"]},
+                                       record["nav"]["diff/2048"]["graphed_ms"])
 
     elapsed = time.perf_counter() - t_start
     print(f"chip_smoke: all phases passed in {elapsed:.1f} s")

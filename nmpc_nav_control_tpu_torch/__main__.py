@@ -12,18 +12,19 @@ executables and launch files:
               fixed-rate executor against a simulated robot; the
               ``src/main.cpp`` + ``launch/run_nmpc_nav_control.launch``
               analog (with the simulated plant standing in for ROS/TF I/O).
+  bench     — the benchmark sweep (``bench.py``'s records, measured on the
+              card: ``nmpc_nav_control_tpu_torch/bench.py``).
   export    — serialize the navigation tick to an AOT artifact
               (``runtime/aot.py``; the prebuilt-capsule analog), for the
               platforms ``--platform`` names (default cuda and cpu).
 
-``prepare`` and ``run`` run on the card unless ``--device cpu`` asks for
-the CPU; with no card they raise, and so does ``export`` for its ``cuda``
-platform.  The kernel build in ``build/kernels/`` is the port's cache across
+``prepare``, ``run`` and ``bench`` run on the card unless ``--device cpu``
+asks for the CPU; with no card they raise, and so does ``export`` for its
+``cuda`` platform.  The kernel build in ``build/kernels/`` is the port's cache across
 processes (the JAX package's persistent compilation cache has no other
 counterpart: a CUDA graph cannot be serialized).  On the card ``run`` also
 prints the node's first tick, which captures its CUDA graph, and the cycles
-after it.  The JAX package's ``bench`` is not ported: it runs ``bench.py``,
-which imports JAX, and the port's benchmark is work of its own.
+after it.
 """
 from __future__ import annotations
 
@@ -142,6 +143,12 @@ def cmd_run(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from nmpc_nav_control_tpu_torch import bench
+
+    return bench.main(["--device", args.device])
+
+
 def cmd_export(args) -> int:
     from nmpc_nav_control_tpu_torch.runtime.aot import save_tick
     from nmpc_nav_control_tpu_torch.runtime.config import load_config
@@ -193,6 +200,10 @@ def main(argv=None) -> int:
     p.add_argument("--metrics", action="store_true",
                    help="dump the metrics-registry snapshot at exit")
     p.set_defaults(fn=cmd_run)
+
+    p = sub.add_parser("bench", help="run the benchmark sweep (BENCH_* variables as "
+                                     "for bench.py)")
+    p.set_defaults(fn=cmd_bench)
 
     for p in sub.choices.values():
         p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],

@@ -112,13 +112,19 @@ def steady_state_seconds_per_step(
     chains each, after one untimed chain of each length.  On a CUDA device
     a chain is timed with CUDA events recorded on the current stream
     (device time, not the host's enqueue); with ``device="cpu"`` with
-    ``time.perf_counter``.  ``step`` may be an eager tick or a graph replay.
-    Without a card and without ``device="cpu"`` it raises.
+    ``time.perf_counter``.  ``device`` may also be a list (a mesh's
+    devices): where it names several CUDA devices, every one of them is
+    synchronised before and after a chain, and ``time.perf_counter`` times
+    it.  ``step`` may be an eager tick or a graph replay.  Without a card
+    and without ``device="cpu"`` it raises.
     """
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    devices = [torch.device(d) for d in (device if isinstance(device, (list, tuple))
+                                         else [device])]
+    if any(d.type == "cuda" for d in devices) and not torch.cuda.is_available():
         raise RuntimeError("steady_state_seconds_per_step: no CUDA device (pass "
                            "device='cpu' to time on the CPU)")
+    cards = sorted({torch.cuda.current_device() if d.index is None else d.index
+                    for d in devices if d.type == "cuda"})
 
     def chain(k):
         c = carry
@@ -126,17 +132,24 @@ def steady_state_seconds_per_step(
             c = step(c)
         return c
 
+    def synchronize():
+        for i in cards:
+            torch.cuda.synchronize(i)
+
     def timed(k):
-        if device.type != "cuda":
+        if len(cards) != 1:
+            synchronize()
             t0 = time.perf_counter()
             chain(k)
+            synchronize()
             return time.perf_counter() - t0
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        chain(k)
-        end.record()
-        end.synchronize()
+        with torch.cuda.device(cards[0]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            chain(k)
+            end.record()
+            end.synchronize()
         return start.elapsed_time(end) * 1e-3
 
     timings = {}

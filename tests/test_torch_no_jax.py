@@ -8,15 +8,19 @@ the command line's ``run`` for 3 ticks and ``export`` for the CPU, the
 artifact loaded (``runtime/aot.py``) and ticked once, which between them and
 the host runtime's imports (executor, ingest, simulation, checkpoint,
 native, models config, ROS bridge, profiling), the stage-parallel and
-2-D mesh solves, a fleet tick on a mesh and both simulation demos import
+2-D mesh solves, a fleet tick on a mesh, both simulation demos, the
+benchmark (``bench.main`` on a small custom configuration on the CPU),
+the scaling sweep on a mesh that names ``cpu`` twice and both probes import
 every module of the package; and no module of the package names JAX in an
 import.  Without a
-card, ``prepare_solvers`` and the command line raise unless asked for the
-CPU, as the other entry points do (``test_torch_slice.py::
-test_entry_points_default_to_the_card``), and so do the parallel layers'
-meshes, ``init_distributed`` on NCCL and the simulation demos.
+card, ``prepare_solvers`` and the command line (``bench`` included) raise
+unless asked for the CPU, as the other entry points do
+(``test_torch_slice.py::test_entry_points_default_to_the_card``), and so do
+the parallel layers' meshes, ``init_distributed`` on NCCL, the simulation
+demos, ``bench.main``, the probes and the scaling sweep.
 """
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -149,6 +153,22 @@ _, out = tick(lane(sm.on_goal_pose(sm.node_init(spec, config.nav, 1, device="cpu
               lane(sm.Measurements(torch.zeros(1, 3), torch.zeros(1, 3), torch.zeros(1), flag,
                                    flag, flag)))
 assert bool(out.solve_ok) and int(out.status_code) == 1 and tick.meta["horizon"] == 10
+from nmpc_nav_control_tpu_torch import bench, bench_scaling
+from nmpc_nav_control_tpu_torch.tools import node_probe, phase_probe
+os.environ.update(BENCH_GEOMETRY="diff", BENCH_HORIZON="6", BENCH_BATCH="4", BENCH_REPS="1",
+                  BENCH_CHAIN_HI="3", NODE_PROBE_MARCH="1")
+bench.ROOT = {tmp!r}
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    assert bench.main(["--device", "cpu"]) == 0
+    assert phase_probe.main(["diff", "6", "4", "--device", "cpu"]) == 0
+    assert node_probe.main(["diff", "6", "4", "--device", "cpu"]) == 0
+    recs = bench_scaling.measure_scaling(device_counts=[1, 2], batch_per_chip=4, N=6, reps=1,
+                                         k_lo=1, k_hi=3, devices=["cpu"] * 2)
+lines = out.getvalue().splitlines()
+assert len(lines) == 14 and '"nmpc_solves_per_s_per_chip_N6"' in lines[0], lines
+assert os.path.exists(os.path.join({tmp!r}, "BENCH_torch_partial.json"))
+assert [r["devices"] for r in recs] == [1, 2]
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m] is not None)
 print("ok", float(cmd.v[0]))
 """
@@ -172,7 +192,7 @@ def test_port_imports_and_ticks_without_jax(tmp_path):
     runtime_yaml.write_text(RUNTIME_YAML)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     script = SCRIPT.format(root=ROOT, runtime_yaml=str(runtime_yaml),
-                           artifact=str(tmp_path / "tick.aot"))
+                           artifact=str(tmp_path / "tick.aot"), tmp=str(tmp_path))
     proc = subprocess.run([sys.executable, "-c", script],
                           capture_output=True, text=True, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -216,7 +236,8 @@ def test_prepare_and_cli_default_to_the_card(tmp_path):
     for argv in (["run", "--config", str(runtime_yaml)],
                  ["run", "--config", str(runtime_yaml), "--device", "cuda"],
                  ["prepare", models], ["prepare", models, "--device", "cuda"],
-                 ["export", "--config", str(runtime_yaml), "-o", str(tmp_path / "tick.aot")]):
+                 ["export", "--config", str(runtime_yaml), "-o", str(tmp_path / "tick.aot")],
+                 ["bench"], ["bench", "--device", "cuda"]):
         with pytest.raises(RuntimeError, match="CUDA"):
             main(argv)
 
@@ -239,3 +260,27 @@ def test_parallel_layers_and_demos_default_to_the_card():
                        (sim_follow_path.main, ["--ticks", "1"])):
         with pytest.raises((RuntimeError, AssertionError), match="CUDA"):
             main(argv)
+
+
+def test_measurement_entry_points_default_to_the_card(tmp_path, monkeypatch):
+    """The benchmark and the probes run on the card unless given
+    ``--device cpu``, and the scaling sweep takes the visible cards: without
+    one they raise, before measuring or writing anything; the scaling
+    command prints its ``skipped`` line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default works")
+    from nmpc_nav_control_tpu_torch import bench, bench_scaling
+    from nmpc_nav_control_tpu_torch.tools import node_probe, phase_probe
+
+    monkeypatch.setattr(bench, "ROOT", str(tmp_path))
+    for main, argv in ((bench.main, []), (bench.main, ["--device", "cuda"]),
+                       (phase_probe.main, []), (node_probe.main, ["diff", "6", "4"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_scaling.measure_scaling()
+    assert os.listdir(tmp_path) == []
+    proc = subprocess.run([sys.executable, "-m", "nmpc_nav_control_tpu_torch.bench_scaling"],
+                          capture_output=True, text=True, cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout)["skipped"] is True
