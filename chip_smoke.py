@@ -123,8 +123,12 @@ It imports nothing of JAX.  Phases, each printing one line per result:
      own f32 error of the f64 solve on the card; kernels 6-8 against their
      plain versions at N=512 (B=256 and 1) with device times; both solves
      timed at B=256 and 1 through a CUDA graph (eager where the capture
-     fails, said so); ``solve_box_qp_2d`` on a (1, 4) mesh within 1e-6 of
-     the 1-D solve; (c) ``init_distributed`` on NCCL at world size 1, then
+     fails, said so); ``solve_box_qp_2d`` on a (1, 4) mesh (its stage
+     blocks on the visible cards in turn) within 1e-6 of the 1-D solve, the
+     bytes each stage block holds, its ms a solve at B=256 and 1 beside the
+     1-D solve's, and each card's peak memory during the 2-D solve beside
+     the 1-D solve's (placement across cards is measured only with two
+     cards or more); (c) ``init_distributed`` on NCCL at world size 1, then
      ``global_data_mesh``, ``local_to_global``, one fleet tick and
      ``global_to_local`` at 8 lanes a group, equal to the direct tick bit
      for bit; (d) the demos on the card: ``sim_pose_goal`` for the three
@@ -1456,18 +1460,71 @@ def _phase_long_horizon(torch, dev, kernels):
                   f"{iters} IPM iterations); {where}")
             out["ms"][f"{name}/{lanes}"] = dict(ms=ms, how=how, top=top)
 
-    # The 2-D mesh: the one card named four times, or four cards.
+    # The 2-D mesh: its four stage devices over the visible cards in turn
+    # (one card named four times where there is one).
     cards = torch.cuda.device_count()
-    devices = [torch.device("cuda", i) for i in range(4)] if cards >= 4 else [dev] * 4
+    devices = [torch.device("cuda", i % cards) for i in range(4)]
     mesh = make_mesh((1, 4), ("data", "stage"), devices=devices)
     two_d = solve_box_qp_2d(qp, ibx, ibu, mesh, iters=iters).gather(dev)
     gap = max(float((a - b).abs().max()) for a, b in ((two_d.dxs, one_d.dxs),
                                                       (two_d.dus, one_d.dus)))
-    print(f"phase 13 solve_box_qp_2d on a (1, 4) mesh of {'four cards' if cards >= 4 else dev}: "
+    print(f"phase 13 solve_box_qp_2d on a (1, 4) mesh of {min(cards, 4)} card(s): "
           f"max |2-D - 1-D| {gap:.3e} over dxs and dus (bound {MESH2D_TOL:.0e})")
     if not gap <= MESH2D_TOL:
         raise AssertionError(f"phase 13: the 2-D solve departs from the 1-D one by {gap:.3e}")
-    out.update(mesh2d_gap=gap, seconds=time.perf_counter() - t0)
+    out.update(mesh2d_gap=gap, mesh2d=_mesh2d_measures(torch, qp, ibx, ibu, mesh, iters, sp,
+                                                       out["ms"]))
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _mesh2d_measures(torch, qp, ibx, ibu, mesh, iters, one_d, ms_1d):
+    """Phase 13 (b)'s 2-D solve: the bytes each stage block holds for the
+    whole solve (its QP rows and its iterate's), ms a solve beside the 1-D
+    solve's at B=256 and 1, and each card's peak memory above what it held
+    before, for the 2-D solve and for the 1-D solve on one card."""
+    from nmpc_nav_control_tpu_torch.parallel import solve_box_qp_2d
+    from nmpc_nav_control_tpu_torch.qp import ipm
+
+    out = {"block_bytes": []}
+    for j, b in enumerate(ipm._split(qp, ibx, ibu, list(mesh.devices[0]))):
+        qp_bytes = sum(x.numel() * x.element_size() for x in b[:11])
+        it_bytes = sum(x.numel() * x.element_size() * k
+                       for x, k in ((b.Qd, 1), (b.Rd, 1), (b.lbx, 4), (b.lbu, 4)))
+        print(f"phase 13 2-D stage block {j} on {b.Qd.device}: {b.Rd.shape[0]} stages, QP rows "
+              f"{qp_bytes} bytes, iterate {it_bytes} bytes")
+        out["block_bytes"].append(dict(device=str(b.Qd.device), stages=b.Rd.shape[0],
+                                       qp=qp_bytes, iterate=it_bytes))
+    whole = sum(x.numel() * x.element_size() for x in qp)
+    print(f"phase 13 the whole N={LONG_N} B={LONG_B} QP: {whole} bytes")
+    out["qp_bytes"] = whole
+
+    out["ms"] = {}
+    for lanes in (LONG_B, 1):
+        q = type(qp)(*(x[:lanes].clone() for x in qp))
+        ms, how, _ = _solve_ms(torch, lambda q=q: solve_box_qp_2d(q, ibx, ibu, mesh, iters=iters),
+                               f"2-D B={lanes}")
+        print(f"phase 13 solve_box_qp_2d N={LONG_N} B={lanes}: {ms:.3f} ms a solve ({how}, "
+              f"{iters} IPM iterations, CUDA events); the 1-D stage-parallel solve "
+              f"{ms_1d[f'stage-parallel/{lanes}']['ms']:.3f} ms")
+        out["ms"][lanes] = dict(ms=ms, how=how)
+
+    cards = sorted({d.index for d in mesh.devices.ravel()})
+
+    def peaks(fn):
+        torch.cuda.synchronize()
+        before = {c: torch.cuda.memory_allocated(c) for c in cards}
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+        fn()
+        torch.cuda.synchronize()
+        return {c: torch.cuda.max_memory_allocated(c) - before[c] for c in cards}
+
+    out["peak_2d"] = peaks(lambda: solve_box_qp_2d(qp, ibx, ibu, mesh, iters=iters))
+    out["peak_1d"] = peaks(one_d)
+    print(f"phase 13 peak bytes above the held, by card: 2-D solve {out['peak_2d']}, 1-D solve "
+          f"{out['peak_1d']}" + ("" if len(cards) > 1 else
+                                 "; one card: placement across cards not measured"))
     return out
 
 

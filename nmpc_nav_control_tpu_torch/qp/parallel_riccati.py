@@ -20,14 +20,17 @@ elements, each level one batched ``_combine`` of every pair at distance
 ``jax.lax.associative_scan``, whose tree differs, so the two agree to
 rounding, not bit for bit.
 
-``stage_devices`` splits the horizon into contiguous blocks of ceil(N/s)
-stages, block j on ``stage_devices[j]`` (the last block may be shorter and
-holds the terminal element).  Each scan then runs in two levels, as XLA
-partitions a sharded ``associative_scan``: a local scan inside every block
-on its device, the block totals carried across the devices, and a fix-up
-of each block by the carry; the gains read one row of the next block.
-Results come back to the inputs' device.  One block (the default) is the
-plain scan.
+``plqr_solve_blocks`` takes the horizon as contiguous stage blocks, each
+on a device of its own (the last block may be shorter and holds the
+terminal element), and gives the step back in the same blocks.  Each scan
+then runs in two levels, as XLA partitions a sharded ``associative_scan``:
+a local scan inside every block on its device, the block totals carried
+across the devices, and a fix-up of each block by the carry; the gains read
+one row of the next block, and the rollout carries one state row and
+``dx0``.  Nothing else crosses a device, and every crossing goes through
+``move``.  ``plqr_solve`` splits whole tensors into blocks of ceil(N/s)
+stages on ``stage_devices`` (``stage_blocks``) and concatenates the result
+on the inputs' device; one block (the default) is the plain scan.
 
 The small products are torch batched matmuls and the non-symmetric solves
 ``torch.linalg.solve_ex`` with ``check_errors=False``: ``torch.linalg.solve``
@@ -42,7 +45,13 @@ import torch
 
 from nmpc_nav_control_tpu_torch.ops.linalg_small import cho_solve_small, cholesky_small
 
-__all__ = ["plqr_solve", "stage_blocks"]
+__all__ = ["move", "plqr_solve", "plqr_solve_blocks", "stage_blocks", "state_blocks"]
+
+
+def move(x, device):
+    """``x`` on ``device``: the one place where the stage-parallel solves
+    carry a tensor from one device to another."""
+    return x.to(device)
 
 
 def _mv(M, v):
@@ -107,7 +116,7 @@ def _scan(op, blocks, reverse):
     for j in order:
         blk = blocks[j]
         if carry is not None:
-            c = tuple(t.to(blk[0].device).expand_as(e) for t, e in zip(carry, blk))
+            c = tuple(move(t, blk[0].device).expand_as(e) for t, e in zip(carry, blk))
             blk = blocks[j] = op(blk, c) if reverse else op(c, blk)
         carry = tuple(e[:, :1] if reverse else e[:, -1:] for e in blk)
     return blocks
@@ -117,6 +126,68 @@ def stage_blocks(N: int, n_blocks: int) -> list[tuple[int, int]]:
     """[start, stop) of each non-empty block of ceil(N / n_blocks) stages."""
     size = math.ceil(N / n_blocks)
     return [(k, min(k + size, N)) for k in range(0, N, size)]
+
+
+def state_blocks(spans: list[tuple[int, int]]) -> list[tuple[int, int]]:
+    """The state rows of each stage block: a block's stages' own rows, and
+    the last block also row N."""
+    N = spans[-1][1]
+    return [(k0, k1 + (k1 == N)) for k0, k1 in spans]
+
+
+def plqr_solve_blocks(blocks, dx0):
+    """``plqr_solve`` on a horizon held in stage blocks.
+
+    ``blocks``: per block in stage order, (A, B, Qd, Rd, qx, qu, c) on the
+    block's device, batch-leading: A [B, n, nx, nx], B [B, n, nx, nu], Rd,
+    qu, c over the block's n stages, Qd and qx over its state rows
+    (``state_blocks``: the last block's hold row N too); dx0 [B, nx] on any
+    device.  Returns (dxs, dus): per block, the step's state rows [B, rows,
+    nx] and inputs [B, n, nu] on the block's device.
+    """
+    last = len(blocks) - 1
+    elems = []
+    for j, (A, B, Qd, Rd, qx, qu, c) in enumerate(blocks):
+        C = (B / Rd[..., None, :]) @ B.mT                    # B R^{-1} B'
+        b = c - _mv(B, qu / Rd)
+        if j == last:                                        # the terminal element
+            zeroA = torch.zeros_like(A[:, :1])
+            A, b, C = (torch.cat([A, zeroA], 1), torch.cat([b, torch.zeros_like(b[:, :1])], 1),
+                       torch.cat([C, zeroA], 1))
+        elems.append((A, b, C, -qx, torch.diag_embed(Qd)))
+    suffix = _scan(_combine, elems, reverse=True)
+
+    # Stage-parallel gains from P_{k+1}, p_{k+1}: a block's rows shifted by
+    # one, the last row from the next block.
+    gains = []
+    for j, ((A_j, B_j, _, Rd_j, _, qu_j, c_j), (_, _, _, eta, Js)) in enumerate(
+            zip(blocks, suffix)):
+        if j < last:
+            nxt = suffix[j + 1]
+            eta = torch.cat([eta[:, 1:], move(nxt[3][:, :1], eta.device)], 1)
+            Js = torch.cat([Js[:, 1:], move(nxt[4][:, :1], Js.device)], 1)
+        else:
+            eta, Js = eta[:, 1:], Js[:, 1:]
+        P1, p1 = Js, -eta
+        PB = P1 @ B_j
+        L = cholesky_small(B_j.mT @ PB + torch.diag_embed(Rd_j))
+        qu_bar = qu_j + _mv(B_j.mT, p1 + _mv(P1, c_j))
+        kff = -cho_solve_small(L, qu_bar)
+        K = -cho_solve_small(L, PB.mT @ A_j)
+        gains.append((K, kff, A_j + B_j @ K, _mv(B_j, kff) + c_j))
+
+    # Forward rollout as an affine-map prefix scan: dx_{k+1} = Mc[k] dx0 +
+    # vc[k]; a block's first state row is the previous block's last.
+    prefix = _scan(_compose, [g[2:] for g in gains], reverse=False)
+    dxs, dus, prev_row = [], [], dx0[:, None]
+    for j, ((K, kff, _, _), (Mc, vc)) in enumerate(zip(gains, prefix)):
+        x0 = move(dx0, Mc.device)
+        tail = _mv(Mc, x0[:, None].expand(-1, Mc.shape[1], -1)) + vc
+        xs = torch.cat([move(prev_row, Mc.device), tail[:, :-1]], 1)
+        dus.append(_mv(K, xs) + kff)
+        dxs.append(xs if j < last else torch.cat([xs, tail[:, -1:]], 1))
+        prev_row = tail[:, -1:]
+    return dxs, dus
 
 
 def plqr_solve(A, B, Qd, Rd, qx, qu, c, dx0, stage_devices=None):
@@ -129,52 +200,12 @@ def plqr_solve(A, B, Qd, Rd, qx, qu, c, dx0, stage_devices=None):
     ``stage_devices``: the devices of the stage blocks (module docstring);
     None runs one block on the inputs' device.
     """
-    N, nx = B.shape[1], B.shape[2]
     home = A.device
     devices = [home] if stage_devices is None else list(stage_devices)
-    spans = stage_blocks(N, len(devices))
-    devices = devices[:len(spans)]
-
-    Binv = B / Rd[..., None, :]                              # B R^{-1}
-    C = Binv @ B.mT                                          # B R^{-1} B'
-    b = c - _mv(B, qu / Rd)
-    zeroA = torch.zeros_like(A[:, :1])
-    elems = (torch.cat([A, zeroA], 1), torch.cat([b, torch.zeros_like(b[:, :1])], 1),
-             torch.cat([C, zeroA], 1), -qx, torch.diag_embed(Qd))
-
-    # Element blocks: the stage blocks, the terminal element in the last.
-    cuts = [(k0, k1 + (k1 == N)) for k0, k1 in spans]
-
-    def split(xs, cuts=spans):
-        return [tuple(x[:, k0:k1].to(d) for x in xs) for (k0, k1), d in zip(cuts, devices)]
-
-    suffix = _scan(_combine, split(elems, cuts), reverse=True)
-
-    # Stage-parallel gains from P_{k+1}, p_{k+1}: a block's rows shifted by
-    # one, the last row from the next block.
-    gains = []
-    for j, ((A_j, B_j, c_j, Rd_j, qu_j), (_, _, _, eta, Js)) in enumerate(
-            zip(split((A, B, c, Rd, qu)), suffix)):
-        if j + 1 < len(suffix):
-            nxt = suffix[j + 1]
-            eta = torch.cat([eta[:, 1:], nxt[3][:, :1].to(eta.device)], 1)
-            Js = torch.cat([Js[:, 1:], nxt[4][:, :1].to(Js.device)], 1)
-        else:
-            eta, Js = eta[:, 1:], Js[:, 1:]
-        P1, p1 = Js, -eta
-        PB = P1 @ B_j
-        L = cholesky_small(B_j.mT @ PB + torch.diag_embed(Rd_j))
-        qu_bar = qu_j + _mv(B_j.mT, p1 + _mv(P1, c_j))
-        kff = -cho_solve_small(L, qu_bar)
-        K = -cho_solve_small(L, PB.mT @ A_j)
-        gains.append((K, kff, A_j + B_j @ K, _mv(B_j, kff) + c_j))
-
-    # Forward rollout as an affine-map prefix scan: dx_{k+1} = Mc[k] dx0 + vc[k].
-    prefix = _scan(_compose, [g[2:] for g in gains], reverse=False)
-    dxs, dus = [dx0[:, None]], []
-    for (K, kff, _, _), (Mc, vc) in zip(gains, prefix):
-        tail = _mv(Mc, dx0.to(Mc.device)[:, None].expand(-1, Mc.shape[1], -1)) + vc
-        prev = torch.cat([dxs[-1][:, -1:].to(Mc.device), tail[:, :-1]], 1)
-        dus.append((_mv(K, prev) + kff).to(home))
-        dxs.append(tail.to(home))
-    return torch.cat(dxs, 1), torch.cat(dus, 1)
+    spans = stage_blocks(B.shape[1], len(devices))
+    blocks = [tuple(move(x[:, k0:k1], d) for x, (k0, k1) in
+                    zip((A, B, Qd, Rd, qx, qu, c), (st, st, sx, st, sx, st, st)))
+              for st, sx, d in zip(spans, state_blocks(spans), devices)]
+    dxs, dus = plqr_solve_blocks(blocks, dx0)
+    return (torch.cat([move(x, home) for x in dxs], 1),
+            torch.cat([move(u, home) for u in dus], 1))

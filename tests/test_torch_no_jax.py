@@ -218,6 +218,47 @@ def test_no_module_of_the_port_imports_jax():
                         f"{path} imports {m}")
 
 
+WRAPPERS = [os.path.join(ROOT, "examples", "ros", "scripts", name)
+            for name in ("ros_bridge_torch_main", "ros_bridge_torch_prepare")]
+
+WRAPPER_SCRIPT = """
+import runpy
+import sys
+sys.modules["jax"] = None
+sys.modules["nmpc_nav_control_tpu"] = None
+sys.path.insert(0, {root!r})
+import nmpc_nav_control_tpu_torch.runtime.ros_bridge as rb
+seen = []
+rb.main = rb.main_prepare = lambda argv=None: seen.append(list(sys.argv)) or 0
+for path in {wrappers!r}:
+    sys.argv = [path, "config.yaml", "--device", "cpu"]
+    try:
+        runpy.run_path(path, run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, e.code
+assert seen == [[p, "config.yaml", "--device", "cpu"] for p in {wrappers!r}], seen
+assert not any(m == "jax" or m.startswith(("jax.", "nmpc_nav_control_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("ok")
+"""
+
+
+def test_ros_wrappers_run_without_jax():
+    for path in WRAPPERS:
+        for node in ast.walk(ast.parse(open(path).read(), path)):
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                mods = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                        else [node.module or ""])
+                assert all(m.split(".")[0] in ("sys", "nmpc_nav_control_tpu_torch")
+                           for m in mods), (path, mods)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", WRAPPER_SCRIPT.format(root=ROOT,
+                                                                       wrappers=WRAPPERS)],
+                          capture_output=True, text=True, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok", proc.stdout
+
+
 def test_prepare_and_cli_default_to_the_card(tmp_path):
     """Without a device argument ``prepare_solvers`` and the subcommands
     run on the card; on a machine without one they raise rather than carry

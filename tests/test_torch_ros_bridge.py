@@ -6,11 +6,24 @@ reference's wire field layout, ``NMPCNavControlROS.cpp:304-399``): the
 quaternion helpers, the ``*_from_ros`` and ``*_to_ros`` converters with the
 wire names ``PathSet``, ``AuxNum0`` and ``patch_remains``, and the
 namespace resolution.  Each gives the same result through both packages.
+
+The port's deploy entry points: the ROS wrapper scripts
+``examples/ros/scripts/ros_bridge_torch_{main,prepare}`` hand their argv,
+``--device`` included, to the port's ``main``/``main_prepare`` (stubbed, as
+neither machine has a ROS master); the port's launch files name those
+scripts and hand a ``device`` argument (default ``cuda``) to ``--device``;
+the ``[project.scripts]`` of ``pyproject.toml`` resolve to the port's
+callables beside the JAX package's three, whose wrappers stay as they are.
 """
+import importlib
 import math
 import os
+import runpy
+import sys
+import tomllib
 import types
 import warnings
+import xml.etree.ElementTree as ET
 
 import numpy as np
 import pytest
@@ -144,3 +157,65 @@ def test_namespace_matches_jax(monkeypatch):
     trb._apply_namespace("")
     assert "ROS_NAMESPACE" not in os.environ
     assert trb.available() is jrb.available() is False
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROS = os.path.join(ROOT, "examples", "ros")
+
+
+@pytest.mark.parametrize("script,entry,argv", [
+    ("ros_bridge_torch_main", "main",
+     ["config/runtime_diff.yaml", "--namespace", "amr_07", "--device", "cpu"]),
+    ("ros_bridge_torch_prepare", "main_prepare", ["config/models.yaml", "--device", "cpu"]),
+])
+def test_ros_wrapper_scripts_hand_over_their_argv(monkeypatch, script, entry, argv):
+    seen = []
+
+    def stub(argv=None):
+        seen.append((argv, list(sys.argv)))
+        return 0
+
+    monkeypatch.setattr(trb, entry, stub)
+    path = os.path.join(ROS, "scripts", script)
+    monkeypatch.setattr(sys, "argv", [path] + argv)
+    with pytest.raises(SystemExit) as done:
+        runpy.run_path(path, run_name="__main__")
+    assert done.value.code == 0
+    assert seen == [(None, [path] + argv)]
+    assert os.access(path, os.X_OK)
+    assert "nmpc_nav_control_tpu.runtime" in open(os.path.join(ROS, "scripts",
+                                                               script.replace("_torch", ""))).read()
+
+
+@pytest.mark.parametrize("launch,script", [
+    ("run_nmpc_nav_control_torch.launch", "ros_bridge_torch_main"),
+    ("run_nmpc_nav_control_generate_libs_torch.launch", "ros_bridge_torch_prepare"),
+])
+def test_torch_launch_files_start_the_port(launch, script):
+    root = ET.parse(os.path.join(ROS, "launch", launch)).getroot()
+    args = {a.get("name"): a.get("default") for a in root.iter("arg")}
+    assert args["device"] == "cuda"
+    (node,) = root.iter("node")
+    assert node.get("type") == script and node.get("pkg") == "nmpc_nav_control_tpu"
+    assert node.get("args").endswith("--device $(arg device)")
+    cmake = open(os.path.join(ROS, "CMakeLists.txt")).read()
+    assert f"scripts/{script}" in cmake and "scripts/ros_bridge_main" in cmake
+    jax_launch = ET.parse(os.path.join(ROS, "launch", launch.replace("_torch", ""))).getroot()
+    assert next(jax_launch.iter("node")).get("type") == script.replace("_torch", "")
+
+
+def test_console_scripts_resolve_to_the_port():
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    want = {"nmpc-nav-control-tpu-torch": "nmpc_nav_control_tpu_torch.__main__:main",
+            "nmpc-nav-control-tpu-torch-ros": "nmpc_nav_control_tpu_torch.runtime.ros_bridge:main",
+            "nmpc-nav-control-tpu-torch-ros-prepare":
+                "nmpc_nav_control_tpu_torch.runtime.ros_bridge:main_prepare"}
+    for name, target in want.items():
+        assert scripts[name] == target
+        module, attr = target.split(":")
+        fn = getattr(importlib.import_module(module), attr)
+        assert callable(fn) and fn.__module__ == module
+    for name in ("nmpc-nav-control-tpu", "nmpc-nav-control-tpu-ros",
+                 "nmpc-nav-control-tpu-ros-prepare"):
+        assert scripts[name].startswith("nmpc_nav_control_tpu.")
