@@ -24,7 +24,11 @@ asks for the CPU; with no card they raise, and so does ``export`` for its
 processes (the JAX package's persistent compilation cache has no other
 counterpart: a CUDA graph cannot be serialized).  On the card ``run`` also
 prints the node's first tick, which captures its CUDA graph, and the cycles
-after it.
+after it.  ``run --spans PATH`` turns the port's tracing on
+(``utils/telemetry.py``) and at exit writes what it recorded to PATH as one
+Chrome-trace JSON: the host spans and the tick's phases on the host clock;
+it also prints the card's time between graph replays by the host span open
+there (``telemetry.outside_graphs_by_span``).
 """
 from __future__ import annotations
 
@@ -56,12 +60,15 @@ def cmd_prepare(args) -> int:
 def cmd_run(args) -> int:
     import logging
 
+    from nmpc_nav_control_tpu_torch.utils import telemetry
     from nmpc_nav_control_tpu_torch.utils.telemetry import configure, metrics
 
     # Structured JSON-lines logs to stderr (the host opts in; the library
     # never configures logging on import).  --log-level debug turns on the
     # per-tick main_cycle/nmpc_solver channels.
     configure(level=getattr(logging, args.log_level.upper()))
+    if args.spans:
+        telemetry.enable_tracing()
     from nmpc_nav_control_tpu_torch.runtime import (
         NmpcNavControlNode,
         ParametricPath,
@@ -140,6 +147,13 @@ def cmd_run(args) -> int:
         err = math.hypot(robot.pose[0] - args.goal[0],
                          robot.pose[1] - args.goal[1])
         print(f"final position error: {err * 100:.2f} cm")
+    if args.spans:
+        recs = telemetry.records()
+        telemetry.write_chrome_trace(args.spans, recs)
+        print(f"spans: {len(recs.spans)} spans and {len(recs.marks)} phase marks -> {args.spans}")
+        outside = telemetry.outside_graphs_by_span(recs)
+        print("card time outside the graph replays (s, by host span):",
+              {k: round(v, 6) for k, v in sorted(outside.items(), key=lambda kv: -kv[1])})
     return 0
 
 
@@ -199,6 +213,9 @@ def main(argv=None) -> int:
                         "main_cycle/nmpc_solver channels)")
     p.add_argument("--metrics", action="store_true",
                    help="dump the metrics-registry snapshot at exit")
+    p.add_argument("--spans", default=None, metavar="PATH",
+                   help="trace the run and write its spans and tick phases to PATH "
+                        "(Chrome-trace JSON) at exit")
     p.set_defaults(fn=cmd_run)
 
     p = sub.add_parser("bench", help="run the benchmark sweep (BENCH_* variables as "

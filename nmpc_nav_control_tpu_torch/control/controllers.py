@@ -26,6 +26,7 @@ from nmpc_nav_control_tpu_torch.rti.step import (
     rti_step,
 )
 from nmpc_nav_control_tpu_torch.tick_types import CmdVel
+from nmpc_nav_control_tpu_torch.utils import telemetry
 from nmpc_nav_control_tpu_torch.utils.index import sel
 
 __all__ = [
@@ -177,11 +178,15 @@ def controller_step(spec: ControllerSpec, data: OCPData, state: RTIState, pose, 
     pose [B, 3] (x, y, theta), vel [B, 3] (v, vn, w), traj_xy_theta
     [B, N+1, 3] with n_valid [B] valid rows; steer_angle [B] is the measured
     steering angle (tric only; zeros when None).  Returns (new_state,
-    CmdVel, RTIStats).
+    CmdVel, RTIStats).  With tracing on it marks ``ctl.start`` and
+    ``ctl.end`` (``utils/telemetry.py``).
     """
+    telemetry.mark("ctl.start", pose)
     if steer_angle is None:
         steer_angle = torch.zeros_like(state.x0_carry[:, 0])
     x0 = _compose_x0(spec, data, state, pose, vel, steer_angle)
     new_state, u0, stats = rti_step(spec.rti, data, state, x0, traj_xy_theta, n_valid)
     refs = x0[:, sel(spec.dims.model.idxbx, x0.device)] + u0 * spec.dims.dt
-    return new_state, _cmd_of(spec, data, refs), stats
+    cmd = _cmd_of(spec, data, refs)
+    telemetry.mark("ctl.end", pose)
+    return new_state, cmd, stats

@@ -30,6 +30,16 @@ capture routine (``_GraphedTick``).
 Launch counts (``ops._build.launch_counts``) grow at the warm-up ticks and
 at the capture, one tick's launches, and not at replays.  Without a CUDA
 device the classes raise; they never run eagerly in their place.
+
+Telemetry (``utils/telemetry.py``): a capture is a ``graph.capture`` span
+(``graph.warmup``, ``graph.record``) and counts ``graph.captures``, and
+``graph.recaptures`` where the object held a capture; the captured graph's
+node count is ``capture_nodes`` and the ``graph.nodes`` gauge.  Each replay
+is a ``graph.replay`` span and counts ``graph.replays``.  A tick captured
+while tracing is on holds its phase marks, which each replay writes on the
+card, between ``graph.start`` and ``graph.end`` around the whole captured
+body (the tick and the copy into the state buffers); captured with tracing
+off, the graph holds none.
 """
 from __future__ import annotations
 
@@ -45,6 +55,7 @@ from nmpc_nav_control_tpu_torch.control.controllers import (
 from nmpc_nav_control_tpu_torch.ocp.spec import OCPData
 from nmpc_nav_control_tpu_torch.ops import _build
 from nmpc_nav_control_tpu_torch.qp.ipm import tiled_ipm_ok
+from nmpc_nav_control_tpu_torch.utils import telemetry
 
 __all__ = ["GraphedController", "GraphedNavigator"]
 
@@ -64,8 +75,9 @@ class _GraphedTick:
     outputs.
     """
 
-    _capture = None           # (route, graph, outputs)
+    _capture = None           # (route, graph, outputs, GraphMarks or None)
     capture_launches = None   # the last capture's launches, one tick's
+    capture_nodes = None      # the last captured graph's node count
 
     @staticmethod
     def _check_device(data: OCPData, what: str):
@@ -85,18 +97,30 @@ class _GraphedTick:
         tick's."""
         route = tiled_ipm_ok()
         device = self.data.p.device
-        stream = torch.cuda.Stream(device)
-        stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream):
-            for _ in range(WARMUP_TICKS):
-                self._tick()
-        torch.cuda.current_stream(device).wait_stream(stream)
-        before = _build.launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            new_state, outputs = self._tick()
-            _copy_into(self.state, new_state)
-        self._capture = (route, graph, outputs)
+        with telemetry.span("graph.capture"):
+            with telemetry.span("graph.warmup"):
+                stream = torch.cuda.Stream(device)
+                stream.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(stream):
+                    for _ in range(WARMUP_TICKS):
+                        self._tick()
+                torch.cuda.current_stream(device).wait_stream(stream)
+            with telemetry.span("graph.record"), telemetry.recording(device) as marks:
+                before = _build.launch_counts()
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+                with torch.cuda.graph(graph):
+                    telemetry.mark("graph.start", self.data.p)
+                    new_state, outputs = self._tick()
+                    _copy_into(self.state, new_state)
+                    telemetry.mark("graph.end", self.data.p)
+                graph.instantiate()
+        m = telemetry.metrics()
+        m.counter("graph.captures").inc()
+        if self._capture is not None:
+            m.counter("graph.recaptures").inc()
+        self.capture_nodes = _build.graph_nodes(graph.raw_cuda_graph())
+        m.gauge("graph.nodes").set(self.capture_nodes)
+        self._capture = (route, graph, outputs, marks)
         self.capture_launches = {k: n - before.get(k, 0)
                                  for k, n in _build.launch_counts().items()
                                  if n != before.get(k, 0)}
@@ -105,8 +129,10 @@ class _GraphedTick:
     def _replay(self):
         if self._capture is None or self._capture[0] != tiled_ipm_ok():
             self.capture()
-        _, graph, outputs = self._capture
-        graph.replay()
+        _, graph, outputs, marks = self._capture
+        with telemetry.replay(marks):
+            graph.replay()
+        telemetry.metrics().counter("graph.replays").inc()
         return outputs
 
 
@@ -187,7 +213,8 @@ class GraphedNavigator(_GraphedTick):
 
     def load_state(self, state: sm.NodeState) -> None:
         """Copy a NodeState (any device) into the static state."""
-        _copy_into(self.state, state)
+        with telemetry.span("nav.load_state"):
+            _copy_into(self.state, state)
 
     def _tick(self):
         return sm.node_tick(self.spec, self.data, self.cfg, self.state, self.meas)

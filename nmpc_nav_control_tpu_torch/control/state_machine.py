@@ -26,6 +26,11 @@ observable:
   - BREAK publishes a stop command and falls to IDLE (``:612-616``);
   - ERROR is terminal until a new goal/path arrives (``:531-532``).
 
+With tracing on (``utils/telemetry.py``) ``node_tick`` marks ``tick.start``
+and ``tick.end`` (in a captured graph, on the card at every replay), and
+``on_goal_pose`` and ``on_path_set`` are ``nav.on_goal`` and ``nav.on_path``
+spans.
+
 Every tensor has a leading batch axis [B].  The event functions
 (``on_goal_pose``, ``on_path_set``, ``on_command``) act on every lane of
 the state they are given, as the JAX package's act on the state they are
@@ -64,6 +69,7 @@ from nmpc_nav_control_tpu_torch.paths.windowing import (
 )
 from nmpc_nav_control_tpu_torch.rti.step import rti_reset
 from nmpc_nav_control_tpu_torch.tick_types import Measurements, NodeState, TickOutput
+from nmpc_nav_control_tpu_torch.utils import telemetry
 from nmpc_nav_control_tpu_torch.utils.angles import dist, norm_ang_rad
 
 __all__ = [
@@ -116,11 +122,12 @@ def node_init(spec: ControllerSpec, cfg: NavConfig, batch: int, dtype=torch.floa
 def on_goal_pose(state: NodeState, goal_pose) -> NodeState:
     """pose_goal received (``goalPoseReceivedCallback``, ``:304-310``);
     goal_pose [3] or [B, 3]."""
-    return state._replace(
-        status=torch.full_like(state.status, GO_TO_POSE),
-        goal_pose=goal_pose.to(state.goal_pose).expand_as(state.goal_pose).clone(),
-        rti=rti_reset(state.rti),
-    )
+    with telemetry.span("nav.on_goal"):
+        return state._replace(
+            status=torch.full_like(state.status, GO_TO_POSE),
+            goal_pose=goal_pose.to(state.goal_pose).expand_as(state.goal_pose).clone(),
+            rti=rti_reset(state.rti),
+        )
 
 
 def on_path_set(state: NodeState, cfg: NavConfig, new_segs: PathSegment, n_new,
@@ -131,19 +138,20 @@ def on_path_set(state: NodeState, cfg: NavConfig, new_segs: PathSegment, n_new,
     FOLLOW_PATH even for an empty set, and an empty set leaves the buffers
     untouched (the reference sets the status and returns before clearing
     them, ``:557-562``)."""
-    if not isinstance(n_new, torch.Tensor):
-        n_new = torch.full_like(state.status, n_new)
-    if not isinstance(request_id, torch.Tensor):
-        request_id = torch.full_like(state.request_id, request_id)
-    nonempty = n_new > 0
-    window = ingest(state.window, new_segs, n_new, cfg.max_active_path_length)
-    return state._replace(
-        status=torch.full_like(state.status, FOLLOW_PATH),
-        window=_where(nonempty, window, state.window),
-        active_path_u=torch.where(nonempty, 0.0, state.active_path_u),
-        rti=rti_reset(state.rti),
-        request_id=request_id.to(state.request_id).expand_as(state.request_id).clone(),
-    )
+    with telemetry.span("nav.on_path"):
+        if not isinstance(n_new, torch.Tensor):
+            n_new = torch.full_like(state.status, n_new)
+        if not isinstance(request_id, torch.Tensor):
+            request_id = torch.full_like(state.request_id, request_id)
+        nonempty = n_new > 0
+        window = ingest(state.window, new_segs, n_new, cfg.max_active_path_length)
+        return state._replace(
+            status=torch.full_like(state.status, FOLLOW_PATH),
+            window=_where(nonempty, window, state.window),
+            active_path_u=torch.where(nonempty, 0.0, state.active_path_u),
+            rti=rti_reset(state.rti),
+            request_id=request_id.to(state.request_id).expand_as(state.request_id).clone(),
+        )
 
 
 def on_command(state: NodeState, command: str) -> NodeState:
@@ -174,6 +182,7 @@ def node_tick(spec: ControllerSpec, data: OCPData, cfg: NavConfig, state: NodeSt
     is_omni = spec.geometry == "omni4"
     is_tric = spec.geometry == "tric"
     pose, vel = meas.pose, meas.vel
+    telemetry.mark("tick.start", pose)
     px, py, pth = pose[:, 0], pose[:, 1], pose[:, 2]
 
     # Input validity: the overwrite bug leaves the pose flag unread; only vel
@@ -283,4 +292,5 @@ def node_tick(spec: ControllerSpec, data: OCPData, cfg: NavConfig, state: NodeSt
         actual_frame=front_fp.frame_id,
         next_frame=next_frame.to(torch.int32),
     )
+    telemetry.mark("tick.end", pose)
     return new_state, out

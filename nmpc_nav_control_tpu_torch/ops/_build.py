@@ -27,6 +27,10 @@ CPU one runs its plain version and the fake one gives the outputs' shapes,
 so that ``torch.export`` traces a kernel as one node and a loaded program
 runs it on either device (``runtime/aot.py``).  ``use_op``, ``use_kernel``
 and ``check`` are the wrappers' shared routing and argument checks.
+
+The build and the library's load run inside a ``kernels.build`` span, and a
+build that compiles counts one ``kernels.builds`` (``utils/telemetry.py``).
+``graph_nodes`` counts the nodes of a captured CUDA graph.
 """
 from __future__ import annotations
 
@@ -44,11 +48,14 @@ from pathlib import Path
 
 import torch
 
+from nmpc_nav_control_tpu_torch.utils import telemetry
+
 __all__ = [
     "CSRC",
     "build",
     "check",
     "define_op",
+    "graph_nodes",
     "header_config",
     "launch",
     "launch_counts",
@@ -144,14 +151,30 @@ def build() -> tuple[Path, float]:
         if failed:
             raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
         os.replace(tmp_lib, lib)
+    telemetry.metrics().counter("kernels.builds").inc()
     return lib, time.perf_counter() - t0
 
 
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        _lib = ctypes.CDLL(str(build()[0]))
+        with telemetry.span("kernels.build"):
+            _lib = ctypes.CDLL(str(build()[0]))
     return _lib
+
+
+def graph_nodes(raw_graph: int) -> int:
+    """The number of nodes of a captured CUDA graph: ``raw_graph`` is its
+    ``cudaGraph_t`` (``torch.cuda.CUDAGraph(keep_graph=True)
+    .raw_cuda_graph()``), counted by ``cudaGraphGetNodes``."""
+    fn = _load().graph_node_count
+    fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
+    fn.restype = ctypes.c_int
+    count = ctypes.c_size_t(0)
+    rc = fn(raw_graph, ctypes.byref(count))
+    if rc != 0:
+        raise RuntimeError(f"cudaGraphGetNodes: CUDA error {rc}")
+    return count.value
 
 
 def launch(kernel: str, config: str, tensors, N: int, B: int,

@@ -23,6 +23,9 @@ navigators' static buffers too, overwritten by the next tick: clone what
 you keep.  In a multi-process run (``torch.distributed``) a group's
 ``batch`` is this process's lanes, and host inputs enter through
 ``multihost.local_to_global``, as the JAX package's ``_shard_in`` does.
+
+With tracing on (``utils/telemetry.py``) a tick is a ``fleet.tick`` span
+holding one ``fleet.group`` span a group.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ from nmpc_nav_control_tpu_torch.control.state_machine import (
 )
 from nmpc_nav_control_tpu_torch.ocp.spec import OCPData
 from nmpc_nav_control_tpu_torch.parallel.sharding import Sharded, lane_blocks, leaves, tree_map
+from nmpc_nav_control_tpu_torch.utils import telemetry
 
 __all__ = ["Fleet", "FleetGroup"]
 
@@ -72,7 +76,8 @@ class _EagerNavigator:
         self.state = node_init(spec, cfg, batch, data.p.dtype, data.p.device)
 
     def load_state(self, state: NodeState) -> None:
-        _copy_into(self.state, state)
+        with telemetry.span("nav.load_state"):
+            _copy_into(self.state, state)
 
     def step(self, meas: Measurements):
         self.state, out = node_tick(self.spec, self.data, self.cfg, self.state,
@@ -129,14 +134,16 @@ class Fleet:
     def tick(self, measurements: Dict[str, Measurements]) -> dict:
         """Advance every group one control cycle: {name: TickOutput}."""
         outs = {}
-        for name, meas in measurements.items():
-            navs, blocks = self.navigators[name], []
-            for nav, block in zip(navs, self._shard_in(meas)):
-                device = nav.data.p.device
-                on_card = device.type == "cuda"
-                with torch.cuda.device(device) if on_card else contextlib.nullcontext():
-                    blocks.append(nav.step(block)[1])
-            outs[name] = self._shard_out(navs, blocks)
+        with telemetry.span("fleet.tick"):
+            for name, meas in measurements.items():
+                with telemetry.span("fleet.group", group=name):
+                    navs, blocks = self.navigators[name], []
+                    for nav, block in zip(navs, self._shard_in(meas)):
+                        device = nav.data.p.device
+                        on_card = device.type == "cuda"
+                        with torch.cuda.device(device) if on_card else contextlib.nullcontext():
+                            blocks.append(nav.step(block)[1])
+                    outs[name] = self._shard_out(navs, blocks)
         return outs
 
     @property

@@ -37,6 +37,7 @@ from nmpc_nav_control_tpu_torch.ops.ipm_fused import dense_sparsity
 from nmpc_nav_control_tpu_torch.ops.linearize_packed import linearize_packed
 from nmpc_nav_control_tpu_torch.qp.ipm import BoxQP, solve_box_qp, tiled_ipm_ok
 from nmpc_nav_control_tpu_torch.tick_types import RTIState
+from nmpc_nav_control_tpu_torch.utils import telemetry
 from nmpc_nav_control_tpu_torch.utils.angles import unwrap_angle
 from nmpc_nav_control_tpu_torch.utils.index import sel
 
@@ -115,7 +116,9 @@ def rti_step(config: RTIConfig, data: OCPData, state: RTIState, x0, traj_xy_thet
 
     x0 [B, nx] is the pinned initial state (composed by the control layer);
     traj_xy_theta [B, N+1, 3] the reference poses, n_valid [B] the number of
-    valid rows.  Returns (new_state, u0 [B, nu], stats).
+    valid rows.  Returns (new_state, u0 [B, nu], stats).  With tracing on
+    the QP solve is marked ``qp.start`` and ``qp.end``
+    (``utils/telemetry.py``).
     """
     dims = config.dims
     model = dims.model
@@ -154,8 +157,10 @@ def rti_step(config: RTIConfig, data: OCPData, state: RTIState, x0, traj_xy_thet
     c = x_next - xs_lin[:, 1:].permute(1, 2, 0)
     qp = BoxQP(A=None, B=None, c=None, Qd=Qd, qx=qx, Rd=Rd, qu=qu,
                dx0=x0 - xs_lin[:, 0], lbx=lbx_d, ubx=ubx_d, lbu=lbu_d, ubu=ubu_d)
+    telemetry.mark("qp.start", x0)
     sol = solve_box_qp(qp, model.idxbx, model.idxbu, iters=config.ipm_iters,
                        reg=config.ipm_reg, spars=spars, packed_abc=(A, Bm, c), tiled=tiled)
+    telemetry.mark("qp.end", x0)
 
     # Expand, integrate the references, carry stage 1.
     xs_new = xs_lin + sol.dxs

@@ -152,7 +152,9 @@ def export_tick(config, batch: Optional[int] = None, platforms=_PLATFORMS,
     ``batch``: None exports the single-robot tick; an int the fleet tick
     over that many lanes.  ``platforms``: "cuda" (traced on the card, which
     it needs: without one it raises) and/or "cpu".  The IPM route is the
-    one ``NMPC_TPU_TILED_IPM`` selects now.
+    one ``NMPC_TPU_TILED_IPM`` selects now.  The program holds no phase
+    mark, whether tracing is on or not (``telemetry.mark`` does nothing
+    under the exporter's tensors).
 
     Returns bytes: magic | u32 header length | JSON header | archives.
     """

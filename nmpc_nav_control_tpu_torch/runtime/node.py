@@ -18,10 +18,17 @@ Reference behaviors carried over:
   - control_status publishing every tick (``:364-388``);
   - per-cycle wall-time + solver-time accounting (the ROS_DEBUG timing hooks,
     ``:508-514,715``) surfaced as p50/p99 stats.
+
+With tracing on (``utils/telemetry.py``) a cycle is a ``node.tick`` span
+over the same two clock readings as its wall time, holding ``node.upload``
+(measurements into the static buffers), ``node.replay`` (the tick),
+``node.fetch`` (the output copy, which waits for the device) and
+``node.decode`` (twist, status, actual path).
 """
 from __future__ import annotations
 
 import collections
+import logging
 import time
 from typing import Optional
 
@@ -51,6 +58,7 @@ from nmpc_nav_control_tpu_torch.runtime.messages import (
     decode_path_set,
     encode_path_set,
 )
+from nmpc_nav_control_tpu_torch.utils import telemetry
 from nmpc_nav_control_tpu_torch.utils.telemetry import channel, metrics
 
 __all__ = ["NmpcNavControlNode"]
@@ -223,81 +231,22 @@ class NmpcNavControlNode:
         drives the reference to Error (``getRobotPose`` catch, ``:431-434``).
         A ``None`` Twist means no cmd_vel is published this tick (Idle/Error).
         """
-        t0 = time.perf_counter()
-        required = self.required_frame()
-        if pose_frame is not None and pose_frame != required:
-            new_pose = None
-            if self.frame_transformer is not None:
-                new_pose = self.frame_transformer(pose, pose_frame, required)
-            if new_pose is None:
-                _log_node.warning("pose_transform_failed",
-                                  from_frame=pose_frame, to_frame=required)
-                pose_valid = False
-                vel_valid = False
-            else:
-                pose = new_pose
-
-        def lane(x, dtype=self.dtype):
-            return torch.tensor([x], dtype=dtype)
-
-        meas = Measurements(
-            pose=lane(list(pose)), vel=lane(list(vel)), steer_angle=lane(self._steer_angle),
-            pose_valid=lane(bool(pose_valid), torch.bool),
-            vel_valid=lane(bool(vel_valid), torch.bool),
-            steer_valid=lane(bool(steer_valid), torch.bool),
-        )
-        if self._graphed is None:
-            self._state, out = node_tick(self.spec, self.data, self.cfg, self._state, meas)
-        else:
-            _, out = self._graphed.step(meas)
-        out = _fetch(out)
-
-        publish = bool(out["publish_cmd"])
-        twist: Optional[Twist] = None
-        if publish:
-            v, vn, w = float(out["v"]), float(out["vn"]), float(out["w"])
-            self.last_cmd = (v, vn, w)
-            if self.spec.geometry == "tric":
-                # Reference quirk: cmd_vel.angular.z carries the MEASURED
-                # steering angle, not alpha_ref, even when stopping
-                # (``pubCmdVel``, ``:351-355``).
-                twist = Twist(linear_x=v, linear_y=0.0, angular_z=self._steer_angle)
-            elif self.spec.geometry == "diff":
-                twist = Twist(linear_x=v, linear_y=0.0, angular_z=w)
-            else:
-                twist = Twist(linear_x=v, linear_y=vn, angular_z=w)
-
-        status = ControlStatus(
-            status=int(out["status_code"]),
-            request_id=int(out["request_id"]),
-            path_remains=float(out["path_remains"]),
-        )
-        # actual_path re-publication (``pubActualPath``, ``:390-399,696``).
-        if bool(out["publish_actual"]):
-            self.last_actual_path = encode_path_set(
-                out["actual_cx"], out["actual_cy"], out["actual_ch"], out["actual_velocity"],
-                out["actual_frame"], self.frames, out["active_path_u"])
-        else:
-            self.last_actual_path = None
-        # The frame the NEXT FollowPath tick needs (the window may have
-        # rotated into a new frame_id this tick).
-        nf = int(out["next_frame"])
-        if nf > 0:
-            self._required_frame = self.frames.name(nf)
-        if self.debug_outputs:
-            # debug_discretized_path payload (``pubDebugDiscretizedPath``,
-            # ``:722-738``).
-            self.last_debug_path = out["debug_path"] if bool(out["publish_debug"]) else None
-            self.last_actual_path_u = float(out["active_path_u"])
-        cycle_s = time.perf_counter() - t0
-        kkt = float(out["kkt_res"])
+        t0 = time.perf_counter_ns()
+        cycle = telemetry.begin("node.tick", t0)
+        try:
+            twist, status, kkt = self._cycle(pose, vel, pose_valid, vel_valid, steer_valid,
+                                             pose_frame)
+        finally:
+            t1 = time.perf_counter_ns()
+            telemetry.end(cycle, t1)
+        cycle_s = (t1 - t0) * 1e-9
         self._cycle_times.append(cycle_s)
         self._solver_kkt.append(kkt)
         self._total_cycles += 1
 
         m = self._metrics
         m.counter("node.ticks").inc()
-        if publish:
+        if twist is not None:
             m.counter("node.cmds_published").inc()
         m.gauge("node.cycle_ms").set(cycle_s * 1e3)
         m.gauge("node.kkt_res").set(kkt)
@@ -310,10 +259,88 @@ class NmpcNavControlNode:
             if status.status == 2:
                 m.counter("node.error_transitions").inc()
             self._last_status_code = status.status
-        _log_cycle.debug("tick", cycle_ms=round(cycle_s * 1e3, 3),
-                         budget_ms=round(self.config.dt * 1e3, 3))
-        _log_solver.debug("solve", kkt_res=kkt, status=status.status)
+        if _log_cycle.isEnabledFor(logging.DEBUG):
+            _log_cycle.debug("tick", cycle_ms=round(cycle_s * 1e3, 3),
+                             budget_ms=round(self.config.dt * 1e3, 3))
+        if _log_solver.isEnabledFor(logging.DEBUG):
+            _log_solver.debug("solve", kkt_res=kkt, status=status.status)
         return twist, status
+
+    def _cycle(self, pose, vel, pose_valid, vel_valid, steer_valid, pose_frame):
+        """The cycle's work between its two clock readings: (Twist | None,
+        ControlStatus, kkt_res)."""
+        with telemetry.span("node.upload"):
+            required = self.required_frame()
+            if pose_frame is not None and pose_frame != required:
+                new_pose = None
+                if self.frame_transformer is not None:
+                    new_pose = self.frame_transformer(pose, pose_frame, required)
+                if new_pose is None:
+                    _log_node.warning("pose_transform_failed",
+                                      from_frame=pose_frame, to_frame=required)
+                    pose_valid = False
+                    vel_valid = False
+                else:
+                    pose = new_pose
+
+            def lane(x, dtype=self.dtype):
+                return torch.tensor([x], dtype=dtype)
+
+            meas = Measurements(
+                pose=lane(list(pose)), vel=lane(list(vel)), steer_angle=lane(self._steer_angle),
+                pose_valid=lane(bool(pose_valid), torch.bool),
+                vel_valid=lane(bool(vel_valid), torch.bool),
+                steer_valid=lane(bool(steer_valid), torch.bool),
+            )
+            if self._graphed is not None:
+                self._graphed.load_measurements(meas)
+        with telemetry.span("node.replay"):
+            if self._graphed is None:
+                self._state, out = node_tick(self.spec, self.data, self.cfg, self._state, meas)
+            else:
+                _, out = self._graphed.step()
+        with telemetry.span("node.fetch"):
+            out = _fetch(out)
+
+        with telemetry.span("node.decode"):
+            publish = bool(out["publish_cmd"])
+            twist: Optional[Twist] = None
+            if publish:
+                v, vn, w = float(out["v"]), float(out["vn"]), float(out["w"])
+                self.last_cmd = (v, vn, w)
+                if self.spec.geometry == "tric":
+                    # Reference quirk: cmd_vel.angular.z carries the MEASURED
+                    # steering angle, not alpha_ref, even when stopping
+                    # (``pubCmdVel``, ``:351-355``).
+                    twist = Twist(linear_x=v, linear_y=0.0, angular_z=self._steer_angle)
+                elif self.spec.geometry == "diff":
+                    twist = Twist(linear_x=v, linear_y=0.0, angular_z=w)
+                else:
+                    twist = Twist(linear_x=v, linear_y=vn, angular_z=w)
+
+            status = ControlStatus(
+                status=int(out["status_code"]),
+                request_id=int(out["request_id"]),
+                path_remains=float(out["path_remains"]),
+            )
+            # actual_path re-publication (``pubActualPath``, ``:390-399,696``).
+            if bool(out["publish_actual"]):
+                self.last_actual_path = encode_path_set(
+                    out["actual_cx"], out["actual_cy"], out["actual_ch"], out["actual_velocity"],
+                    out["actual_frame"], self.frames, out["active_path_u"])
+            else:
+                self.last_actual_path = None
+            # The frame the NEXT FollowPath tick needs (the window may have
+            # rotated into a new frame_id this tick).
+            nf = int(out["next_frame"])
+            if nf > 0:
+                self._required_frame = self.frames.name(nf)
+            if self.debug_outputs:
+                # debug_discretized_path payload (``pubDebugDiscretizedPath``,
+                # ``:722-738``).
+                self.last_debug_path = out["debug_path"] if bool(out["publish_debug"]) else None
+                self.last_actual_path_u = float(out["active_path_u"])
+            return twist, status, float(out["kkt_res"])
 
     # ------------------------------------------------------------------ #
     # Observability (the ROS_DEBUG timing hooks, ``:508-514,715``)
