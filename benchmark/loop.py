@@ -78,10 +78,16 @@ def gaps(prog: dict, ref: dict) -> dict:
     metres from the origin rounds in float32 to steps of 2e-6), and the count
     of differing window entries: status and cursors after the cycle, and the
     program's path store and goal against what the benchmark sent
-    (``input_mismatches``, where the program's side gives it).  A cell
-    compares the numbers its limits name."""
+    (``input_mismatches``, where the program's side gives it).  Where the
+    program's side says in which samples a path was sent (``new_path``),
+    the command, input and relative state gaps also apart for those
+    samples (``*_new_path``: a solve that starts on a new path, where
+    float32 rounding moves the answer tens of times further than elsewhere)
+    and for the rest (``*_on_path``).  A cell compares the numbers its
+    limits name."""
     both = prog["publish"] & ref["publish"]
-    dcmd = (prog["cmd"].double() - ref["cmd"].double()).abs()[both]
+    dcmd_all = (prog["cmd"].double() - ref["cmd"].double()).abs()
+    dcmd = dcmd_all[both]
     dus = (prog["us"].double() - ref["us"].double()).abs()
     flags = sum((prog[k].long() != ref[k].long()).long()
                 for k in ("publish", "status_code", "solve_ok") if k in prog)
@@ -91,8 +97,16 @@ def gaps(prog: dict, ref: dict) -> dict:
         p, r = prog["post"], ref["post"]
         leaves = [(p[k].double(), r[k].double()) for k in ("xs", "carry", "u")]
         out["state_gap"] = amax(torch.cat([(a - b).abs().flatten() for a, b in leaves]))
-        out["state_rel_gap"] = amax(torch.cat([((a - b).abs() / (1 + b.abs())).flatten()
-                                               for a, b in leaves]))
+        rel = torch.cat([((a - b).abs() / (1 + b.abs())).reshape(len(a), -1)
+                         for a, b in leaves], 1)
+        out["state_rel_gap"] = amax(rel)
+        if "new_path" in prog:
+            per = dict(cmd_gap=torch.where(both[:, None], dcmd_all, 0.0),
+                       us_gap=dus.reshape(len(dus), -1), state_rel_gap=rel)
+            new = prog["new_path"].bool()
+            for name, d in per.items():
+                out[f"{name}_on_path"] = amax(d[~new])
+                out[f"{name}_new_path"] = amax(d[new])
         window = sum(int((p[k].long() != r[k].long()).sum())
                      for k in ("status", "head", "active", "total"))
         sent = prog.get("input_mismatches")
@@ -125,13 +139,16 @@ def node_pair(robot, prec, s: dict) -> tuple:
     """(reference's, program's) outputs and state after one batch of
     sampled node cycles (``pre``, ``own``, ``event``, ``inputs``, ``out``,
     ``post``): the reference follows the cycle from the program's carried
-    state with the path store and goal of what the benchmark sent."""
+    state with the path store and goal of what the benchmark sent.  Both
+    sides carry which samples had a path sent (``new_path``), so that a
+    control put in the program's place is judged by the same numbers."""
     x = s["inputs"]
     new, out = follow(robot, prec, s["pre"], s["own"], s["event"], x["pose"], x["vel"],
                       x["steer"])
-    prog = dict(s["out"], us=s["post"]["us"], post=s["post"],
+    path = s["event"]["path"]
+    prog = dict(s["out"], us=s["post"]["us"], post=s["post"], new_path=path,
                 input_mismatches=input_mismatches(s["post"], sent_after(s["own"], s["event"])))
-    return dict(out, us=new["us"], post=new), prog
+    return dict(out, us=new["us"], post=new, new_path=path), prog
 
 
 def worst(readings: list):

@@ -4,13 +4,14 @@ from __future__ import annotations
 
 import json
 import re
+import shutil
 import sys
 
 import pytest
 
 from benchmark import harness
 from benchmark import kernels as K
-from benchmark.tests.conftest import CELLS, HERE, ROOT
+from benchmark.tests.conftest import CELLS, HERE, ROOT, build_tiny, drivers
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -20,11 +21,12 @@ BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 def test_each_cell_loads_by_name(cell):
     c = harness.load_cell(ROOT, cell)
     assert c.driver.Driver is not None
-    numbers = {"cmd_gap", "us_gap", "flag_mismatches"}
+    gaps, counts = ["cmd_gap", "us_gap"], {"flag_mismatches"}
     if c.traffic["driver"] != "sweep":   # a node's state after the cycle is compared too
-        numbers |= {"window_mismatches",
-                    "state_rel_gap" if c.traffic["driver"] == "robot" else "state_gap"}
-    assert set(c.check["limits"]) == numbers
+        gaps.append("state_rel_gap" if c.traffic["driver"] == "robot" else "state_gap")
+        counts.add("window_mismatches")
+    split = {f"{g}_{part}" for g in gaps for part in ("on_path", "new_path")}
+    assert set(c.check["limits"]) in (set(gaps) | counts, split | counts)
     e2e = {m["name"] for m in c.end_to_end}
     assert "setup_s" in e2e and len(e2e) >= 2
     assert c.per_layer, "every cell reports a per-layer metric"
@@ -45,8 +47,10 @@ def test_benchmark_json_keeps_to_the_contract():
         assert 1 <= len(c["why"]) <= 200 and "\n" not in c["why"] and "\t" not in c["why"]
         assert (ROOT / c["file"]).is_file() and c["file"].startswith("benchmark/")
     for w in BENCH["workloads"]:
-        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] == 1
+        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] in (1, 4)
         assert len(w["why"]) <= 200 and "\n" not in w["why"]
+    four = sum(w["chips"] == 4 for w in BENCH["workloads"])
+    assert four <= max(1, len(BENCH["workloads"]) // 4), "at most a quarter of the cells take 4"
     for m in BENCH["end_to_end"]:
         assert m["source"] in ("host_clock", "device_trace")
         assert 0.01 <= m["bound"] <= 0.25
@@ -58,12 +62,58 @@ def test_benchmark_json_keeps_to_the_contract():
     assert len(json.dumps(BENCH)) < 64 * 1024
 
 
+def _groups(config: dict) -> list:
+    return list(config.get("groups", {"one": config}).values())
+
+
 def test_a_cell_is_added_by_new_files_alone(tiny):
-    for short in CELLS.values():
-        c = harness.load_cell(tiny, short, tiny)
-        groups = c.config.get("groups", {"one": c.config})
-        assert all(g["tf_ini"] == 0.25 for g in groups.values())
-        assert c.traffic["driver"] in ("robot", "fleet", "sweep")
+    for cell, driver in CELLS.items():
+        c = harness.load_cell(tiny, cell, tiny)
+        assert all(g["tf_ini"] == 0.25 for g in _groups(c.config))
+        assert [g["steering_geometry"] for g in _groups(c.config)] == [
+            g["steering_geometry"] for g in _groups(harness.load_cell(ROOT, cell).config)]
+        assert c.traffic["driver"] == driver
+
+
+def test_a_cell_the_repo_lacks_runs_from_new_files_and_list_entries(tmp_path):
+    """A tric robot, which no cell of the benchmark runs, is added to a copy of
+    the benchmark as new files (its configuration, its limits) and list
+    entries alone, then cut to size, loaded by name and run correct."""
+    import yaml
+
+    from benchmark.run import run_cell
+
+    repo_before = (ROOT / "BENCHMARK.json").read_bytes()
+    src = tmp_path / "src"
+    for d in ("configs", "traffic", "workloads"):
+        shutil.copytree(HERE / d, src / "benchmark" / d)
+    bench = json.loads(repo_before)
+    robot = next(w for w in bench["workloads"] if CELLS[w["name"]] == "robot")
+    new = "robot_tric_n80_40hz"
+    conf = yaml.safe_load((ROOT / "config" / "runtime_tric.yaml").read_text())
+    (src / "benchmark" / "configs" / "tric_n80.json").write_text(json.dumps(conf))
+    shutil.copy(HERE / "workloads" / f"{robot['name']}.json",
+                src / "benchmark" / "workloads" / f"{new}.json")
+    bench["configs"].append(dict(name="tric_n80", source=bench["configs"][0]["source"],
+                                 file="benchmark/configs/tric_n80.json", reduced=[], why="tric"))
+    bench["workloads"].append(dict(robot, name=new, config="tric_n80"))
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if robot["name"] in m.get("workloads", []):
+            m["workloads"].append(new)
+    (src / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    assert drivers(src)[new] == "robot" and new not in CELLS
+    tiny = build_tiny(src, tmp_path / "tiny")
+    c = harness.load_cell(tiny, new, tiny)
+    assert c.config["steering_geometry"] == "tric" and c.config["tf_ini"] == 0.25
+    like = harness.load_cell(ROOT, robot["name"])
+    assert [m["name"] for m in c.end_to_end + c.per_layer] == [
+        m["name"] for m in like.end_to_end + like.per_layer]
+    res = run_cell(c, 20241017, 1.0, False, device="cpu")
+    assert res["correct"], res["checks"]
+    assert res["attempted"] > 0 and res["failed"] == 0
+    assert (ROOT / "BENCHMARK.json").read_bytes() == repo_before
+    assert not (HERE / "workloads" / f"{new}.json").exists()
 
 
 def test_kernels_and_metrics_are_found_by_file(tmp_path, monkeypatch):

@@ -31,6 +31,6 @@ def test_the_control_fails_where_the_program_passes_on_the_card(cell):
 
 @pytest.mark.parametrize("cell", ["sweep_diff_n80_b4096", "fleet_mixed_n80_moving"])
 def test_the_control_reads_far_above_the_program_on_the_cpu(tiny, cell):
-    c = harness.load_cell(tiny, CELLS[cell], tiny)
+    c = harness.load_cell(tiny, cell, tiny)
     r = readings(c, 77, 2.0, device="cpu")
     assert r["control"]["us_gap"] > 10 * r["program"]["us_gap"], r

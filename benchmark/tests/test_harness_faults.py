@@ -63,13 +63,13 @@ def _window_unmoved(node_tick):
 STEP_FAULTS = {"state_unchanged": _unchanged, "half_left_out": _half_left_out,
                "altered": _altered}
 NODE_FAULTS = {"path_ingested_wrong": _ingested_wrong, "window_unmoved": _window_unmoved}
-CAN_HAVE = {"robot_diff_n80_40hz": ["state_unchanged", "altered", *NODE_FAULTS],
-            "fleet_mixed_n80_moving": [*STEP_FAULTS, "path_ingested_wrong"],
-            "sweep_diff_n80_b4096": list(STEP_FAULTS)}
+CAN_HAVE = {"robot": ["state_unchanged", "altered", *NODE_FAULTS],     # by the cell's driver
+            "fleet": [*STEP_FAULTS, "path_ingested_wrong"],
+            "sweep": list(STEP_FAULTS)}
 
 
 def _run(tiny, cell):
-    c = harness.load_cell(tiny, CELLS[cell], tiny)
+    c = harness.load_cell(tiny, cell, tiny)
     seconds = 1.0 if c.traffic["driver"] == "robot" else 2.0
     return run_cell(c, 20241017, seconds, False, device="cpu")
 
@@ -81,7 +81,7 @@ def test_a_sound_run_is_correct(tiny, cell):
     assert res["failed"] == 0 and res["attempted"] > 0
 
 
-@pytest.mark.parametrize("cell,fault", [(c, f) for c, fs in CAN_HAVE.items() for f in fs])
+@pytest.mark.parametrize("cell,fault", [(c, f) for c, d in CELLS.items() for f in CAN_HAVE[d]])
 def test_a_broken_step_is_not_correct(tiny, cell, fault, monkeypatch):
     from nmpc_nav_control_tpu_torch.control import controllers, state_machine
     from nmpc_nav_control_tpu_torch.parallel import fleet

@@ -117,3 +117,28 @@ def test_trace_readers_on_a_made_up_trace(tmp_path):
     assert harness.reader("cycle_ms_p99").read(ctx, "") is None
     ctx.window = {"cycle_ms_p50": 8.5, "cycle_ms_p99": 12.25}
     assert harness.reader("cycle_ms_p99").read(ctx, "") == 12.25
+
+
+def test_node_gaps_are_also_split_by_samples_on_a_new_path():
+    import torch
+
+    M, N = 3, 4
+    zeros = lambda *shape: torch.zeros(*shape)  # noqa: E731
+    ref = dict(cmd=zeros(M, 3), publish=torch.ones(M, dtype=torch.bool),
+               status_code=torch.zeros(M, dtype=torch.long), us=zeros(M, N, 2),
+               post=dict(xs=zeros(M, N + 1, 3), carry=zeros(M, 3), u=zeros(M),
+                         **{k: torch.zeros(M, dtype=torch.long)
+                            for k in ("status", "head", "active", "total")}))
+    prog = {k: (dict((j, w.clone()) for j, w in v.items()) if isinstance(v, dict)
+                else v.clone()) for k, v in ref.items()}
+    prog["cmd"][0, 1] = 1e-6
+    prog["us"][1, 2, 0] = 1e-3
+    prog["post"]["xs"][1, 0, 0] = 2e-3
+    assert not any(k.endswith("_path") for k in loop.gaps(prog, ref))
+    out = loop.gaps(dict(prog, new_path=torch.tensor([False, True, False])), ref)
+    assert out["cmd_gap"] == out["cmd_gap_on_path"] == pytest.approx(1e-6)
+    assert out["cmd_gap_new_path"] == 0.0
+    assert out["us_gap"] == out["us_gap_new_path"] == pytest.approx(1e-3)
+    assert out["us_gap_on_path"] == 0.0
+    assert out["state_rel_gap_new_path"] == pytest.approx(2e-3)
+    assert out["state_rel_gap_on_path"] == 0.0

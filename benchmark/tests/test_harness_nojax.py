@@ -6,7 +6,7 @@ import subprocess
 import sys
 
 from benchmark import harness
-from benchmark.tests.conftest import ROOT
+from benchmark.tests.conftest import CELLS, ROOT
 
 
 def _run(code: str) -> str:
@@ -29,6 +29,7 @@ def test_forbidden_names_are_whole_top_level_names(monkeypatch):
 
 
 def test_a_run_loads_no_jax(tiny):
+    one_per_driver = sorted({d: c for c, d in CELLS.items()}.values())
     code = f"""
 import torch
 torch.set_num_threads(2)
@@ -36,7 +37,7 @@ import benchmark.run as run
 from pathlib import Path
 from benchmark import harness
 root = Path({str(tiny)!r})
-for cell in ("s", "fl"):
+for cell in {one_per_driver!r}:
     res = run.run_cell(harness.load_cell(root, cell, root), 5, 2.0, False, device="cpu")
     assert res["correct"], res
 print(harness.forbidden_modules())

@@ -6,7 +6,6 @@ import pytest
 import torch
 
 from benchmark import harness, traffic
-from benchmark.tests.conftest import CELLS
 
 MIX = dict(segments=[8, 16], segment_m=[1, 5], turn_deg=[15, 90], line_share=0.5,
            path_speed=[0.3, 0.8], goal_m=[0.5, 2.0], goal_heading_deg=45)
@@ -49,7 +48,7 @@ def test_place_moves_a_path_to_a_pose():
 
 @pytest.mark.parametrize("cell", ["sweep_diff_n80_b4096", "fleet_mixed_n80_moving"])
 def test_a_drivers_plants_and_goals_follow_the_seed(tiny, cell):
-    c = harness.load_cell(tiny, CELLS[cell], tiny)
+    c = harness.load_cell(tiny, cell, tiny)
 
     def first(seed):
         d = c.driver.Driver(c, seed, "cpu")
