@@ -4,10 +4,11 @@
 
 For each seed, one process set-up of the cell, a window of ``--seconds`` at
 the cell's own load, then the compared numbers of the program's sampled
-ticks against the reference in the configuration's precision (float32,
-TF32 off), and of the control: the reference itself put in the program's
-place and computed in the nearest precision below (float32 with TF32
-matrix products), against the same reference on the same samples.
+ticks against the reference in the configuration's precision (float32 with
+TF32 off, or float64), and of the control: the reference itself put in the
+program's place and computed in the nearest precision below (float32 with
+TF32 matrix products, or float32 with TF32 off), against the same reference
+on the same samples.
 One JSON line per seed.  The limits in ``workloads/<cell>.json`` lie
 between the two: above the largest program reading, below the smallest
 control reading.  The benchmark's own runs do not run the control.
@@ -26,13 +27,14 @@ ROOT = Path(__file__).resolve().parents[1]
 def readings(cell, seed: int, seconds: float, device="cuda") -> dict:
     """{"program": numbers, "control": numbers} of one seed's window."""
     from benchmark import loop
-    from benchmark.reference.controller import REF, TF32
+    from benchmark.reference.controller import control, reference
 
     driver = cell.driver.Driver(cell, seed, device)
     driver.warm()
     driver.window(seconds)
     driver.release()
-    refs, ctl = driver.outputs(REF, device), driver.outputs(TF32, device)
+    refs = driver.outputs(reference(cell.dtype), device)
+    ctl = driver.outputs(control(cell.dtype), device)
     return {"program": loop.worst([loop.gaps(prog, ref) for ref, prog in refs]),
             "control": loop.worst([loop.gaps(c, r) for (c, _), (r, _) in zip(ctl, refs)])}
 

@@ -33,7 +33,7 @@ def _where(mask, new, old):
 
 
 class _Group:
-    def __init__(self, name, raw, lanes, seed, stream, mix, device):
+    def __init__(self, name, raw, lanes, seed, stream, mix, device, dtype):
         from nmpc_nav_control_tpu_torch.control import make_controller
         from nmpc_nav_control_tpu_torch.parallel.fleet import FleetGroup
         from nmpc_nav_control_tpu_torch.runtime.config import from_dict
@@ -41,28 +41,27 @@ class _Group:
         self.name, self.robot, self.B = name, robot_from_yaml(raw), lanes
         conf = from_dict(raw)
         spec, data = make_controller(conf.steering_geometry, conf.dt, conf.horizon,
-                                     dtype=torch.float32, device=device,
-                                     **conf.controller_kwargs())
+                                     dtype=dtype, device=device, **conf.controller_kwargs())
         self.group = FleetGroup(spec, data, conf.nav, lanes)
-        f32 = dict(dtype=torch.float32, device=device)
+        fp = dict(dtype=dtype, device=device)
         g = traffic.rng(seed, stream)
         half = lanes // 2
         self.gtp = torch.arange(lanes, device=device) < half
-        self.plants = torch.zeros(lanes, plant.size(self.robot), **f32)
+        self.plants = torch.zeros(lanes, plant.size(self.robot), **fp)
         spread = mix["spread_m"]
-        self.plants[:, 0] = torch.tensor(g.uniform(-spread, spread, lanes), **f32)
-        self.plants[:, 1] = torch.tensor(g.uniform(-spread, spread, lanes), **f32)
-        self.plants[:, 2] = torch.tensor(g.uniform(-3.14159, 3.14159, lanes), **f32)
-        self.offsets = torch.tensor(traffic.goal_offsets(g, (mix["redraws"], lanes), mix), **f32)
+        self.plants[:, 0] = torch.tensor(g.uniform(-spread, spread, lanes), **fp)
+        self.plants[:, 1] = torch.tensor(g.uniform(-spread, spread, lanes), **fp)
+        self.plants[:, 2] = torch.tensor(g.uniform(-3.14159, 3.14159, lanes), **fp)
+        self.offsets = torch.tensor(traffic.goal_offsets(g, (mix["redraws"], lanes), mix), **fp)
         drawn = [traffic.paths(g, lanes, mix) for _ in range(PATH_ROUNDS)]
-        self.paths = [{k: torch.tensor(d[k], **f32) for k in ("cx", "cy", "ch", "vel")}
+        self.paths = [{k: torch.tensor(d[k], **fp) for k in ("cx", "cy", "ch", "vel")}
                       | {"count": torch.tensor(d["count"], dtype=torch.int32, device=device)}
                       for d in drawn]
         self.failed = torch.zeros((), dtype=torch.long, device=device)
         # What the benchmark has sent each lane: the reference's path store and goal.
         cap, deg = self.paths[0]["cx"].shape[1:]
-        self.own = {k: torch.zeros(lanes, cap, deg, **f32) for k in ("cx", "cy", "ch")} | dict(
-            vel=torch.zeros(lanes, cap, **f32), goal=torch.zeros(lanes, 3, **f32),
+        self.own = {k: torch.zeros(lanes, cap, deg, **fp) for k in ("cx", "cy", "ch")} | dict(
+            vel=torch.zeros(lanes, cap, **fp), goal=torch.zeros(lanes, 3, **fp),
             count=torch.zeros(lanes, dtype=torch.int32, device=device))
 
     def events(self, fleet, mask, rnd) -> dict:
@@ -113,7 +112,8 @@ class Driver:
         mix = cell.traffic
         self.cell, self.seed, self.device, self.mix = cell, seed, torch.device(device), mix
         conf = cell.config
-        self.groups = [_Group(name, conf["groups"][name], lanes, seed, 10 + i, mix, self.device)
+        self.groups = [_Group(name, conf["groups"][name], lanes, seed, 10 + i, mix, self.device,
+                              cell.dtype)
                        for i, (name, lanes) in enumerate(conf["scenarios"].items())]
         self.B = sum(g.B for g in self.groups)
         self.fleet = Fleet({g.name: g.group for g in self.groups})

@@ -34,9 +34,11 @@ class Driver:
 
         mix = cell.traffic
         self.cell, self.seed, self.device, self.mix = cell, seed, torch.device(device), mix
+        self.dtype = cell.dtype
         self.robot = robot_from_yaml(cell.config)
         self.period = 1.0 / mix["rate_hz"]
-        self.node = NmpcNavControlNode(from_dict(cell.config), device=self.device)
+        self.node = NmpcNavControlNode(from_dict(cell.config), dtype=self.dtype,
+                                       device=self.device)
         g = traffic.rng(seed, 1)
         self.paths = traffic.paths(g, PATH_ROUNDS, mix)
         self.plant = torch.zeros(1, plant.size(self.robot), dtype=torch.float64)
@@ -69,9 +71,9 @@ class Driver:
 
     def cycle(self):
         """One cycle: (twist or None, status, raw command or None, inputs)."""
-        # The node reads float32 (the configuration's precision); both it and
-        # the reference get these float32 values.
-        pose, vel, steer = (x.float() for x in plant.measure(self.robot, self.plant))
+        # The node reads the configuration's precision; both it and the
+        # reference get these values, rounded to it.
+        pose, vel, steer = (x.to(self.dtype) for x in plant.measure(self.robot, self.plant))
         if self.robot.geometry == "tric":
             self.node.set_steering_wheel_angle(float(steer[0]))
         with record_function(self.per_tick_label):
@@ -126,7 +128,8 @@ class Driver:
             lat.append(math.inf if bad else done - due)
             if keep:
                 self.samples[-1].update(inputs=inputs, post=self._snapshot(), out=dict(
-                    cmd=torch.tensor([cmd if cmd is not None else (0.0, 0.0, 0.0)]),
+                    cmd=torch.tensor([cmd if cmd is not None else (0.0, 0.0, 0.0)],
+                                     dtype=self.dtype),
                     publish=torch.tensor([twist is not None]),
                     status_code=torch.tensor([status.status])))
             keep = k + 1 < cycles and (k + 1 in self.plan

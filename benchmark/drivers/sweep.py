@@ -46,7 +46,7 @@ class Driver:
         self.robot = robot_from_yaml(cell.config)
         conf = from_dict(cell.config)
         spec, data = make_controller(conf.steering_geometry, conf.dt, conf.horizon,
-                                     dtype=torch.float32, device=self.device,
+                                     dtype=cell.dtype, device=self.device,
                                      **conf.controller_kwargs())
         B, N = mix["lanes"], self.robot.N
         self.B = B
@@ -56,12 +56,12 @@ class Driver:
         start = np.stack([g.uniform(-mix["spread_m"], mix["spread_m"], B),
                           g.uniform(-mix["spread_m"], mix["spread_m"], B),
                           g.uniform(-np.pi, np.pi, B)], -1)
-        f32 = dict(dtype=torch.float32, device=self.device)
-        self.plants = torch.zeros(B, plant.size(self.robot), **f32)
-        self.plants[:, :3] = torch.tensor(start, **f32)
-        self.offsets = torch.tensor(traffic.goal_offsets(g, (mix["redraws"], B), mix), **f32)
+        fp = dict(dtype=cell.dtype, device=self.device)
+        self.plants = torch.zeros(B, plant.size(self.robot), **fp)
+        self.plants[:, :3] = torch.tensor(start, **fp)
+        self.offsets = torch.tensor(traffic.goal_offsets(g, (mix["redraws"], B), mix), **fp)
         self.goal = traffic.relative_to(self.plants[:, :3], self.offsets[0])
-        self.traj = torch.zeros(B, N + 1, 3, **f32)
+        self.traj = torch.zeros(B, N + 1, 3, **fp)
         self.n_valid = torch.ones(B, dtype=torch.long, device=self.device)
         cohorts = mix["cohorts"]
         self.every = mix["redraw_ticks"] // cohorts

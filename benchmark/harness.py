@@ -3,7 +3,8 @@
 A cell is an entry of ``workloads`` in ``BENCHMARK.json``.  Everything else
 is found by name under this folder:
 
-  configs/<file>              the configuration (the upstream YAML's keys)
+  configs/<file>              the configuration (the upstream YAML's keys, and
+                              optionally ``precision``: its arithmetic)
   traffic/<traffic>.json      the traffic mix; its ``driver`` names
                               ``drivers/<driver>.py``
   workloads/<cell>.json       what the correctness check samples, and its limits
@@ -26,6 +27,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "nmpc_nav_control_tpu")
+PRECISIONS = ("float32", "float64")
 
 
 @dataclasses.dataclass
@@ -41,6 +43,19 @@ class Cell:
     @property
     def driver(self):
         return importlib.import_module(f"benchmark.drivers.{self.traffic['driver']}")
+
+    @property
+    def dtype(self):
+        """The ``torch.dtype`` the configuration states in its top-level
+        ``precision`` (a fleet's covers every group); float32 where it
+        states none.  The drivers, the reference, the control and the
+        kernel count all take the cell's arithmetic from here."""
+        import torch
+
+        name = self.config.get("precision", "float32")
+        if name not in PRECISIONS:
+            raise ValueError(f"{self.name}: precision {name!r} is not one of {PRECISIONS}")
+        return getattr(torch, name)
 
 
 def _reports(metric: dict, cell: str, e2e_names) -> bool:

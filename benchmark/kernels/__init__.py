@@ -1,12 +1,15 @@
 """The port's kernels: one module each, found by the harness by file name.
 
 A module gives ``PATTERN`` (a regular expression on the kernel's name in the
-profiler's trace) and ``moved_bytes(d, N, B)`` / ``flops(d, N, B)``: what one
+profiler's trace) and ``entries(d, N, B)`` / ``flops(d, N, B)``: what one
 launch at horizon N over B lanes must read and write (each input entry it
-reads once, each output once, float32) and compute, from the shapes of its
-operands (``d``: ``Dims``).  The least time a launch needs is the larger of
-bytes over the card's bandwidth and flops over its float32 rate (NVIDIA H100
-SXM data sheet, at its 700 W limit).
+reads once, each output once) and compute, from the shapes of its operands
+(``d``: ``Dims``), whatever kernel implements it.  The launch's precision,
+the cell's, sets the rest: an entry is 4 bytes in float32 and 8 in float64,
+and the least time a launch needs is the larger of its bytes over the card's
+bandwidth and its flops over the card's rate in that precision (NVIDIA H100
+SXM data sheet, at its 700 W limit: 67 TFLOP/s float32 and 34 TFLOP/s
+float64, both outside the tensor cores).
 """
 from __future__ import annotations
 
@@ -18,8 +21,7 @@ import re
 import torch
 
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS_PER_S = 67e12
-F32 = 4
+PEAK_FLOPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,9 +63,14 @@ def which(kernels: dict, op_name: str):
     return next((n for n, k in kernels.items() if re.search(k.PATTERN, op_name)), None)
 
 
-def least_seconds(kernel, d: Dims, N: int, B: int) -> float:
-    return max(kernel.moved_bytes(d, N, B) / PEAK_BYTES_PER_S,
-               kernel.flops(d, N, B) / PEAK_F32_FLOPS_PER_S)
+def moved_bytes(kernel, d: Dims, N: int, B: int, dtype=torch.float32) -> int:
+    """The bytes one launch reads and writes in ``dtype``."""
+    return dtype.itemsize * kernel.entries(d, N, B)
+
+
+def least_seconds(kernel, d: Dims, N: int, B: int, dtype=torch.float32) -> float:
+    return max(moved_bytes(kernel, d, N, B, dtype) / PEAK_BYTES_PER_S,
+               kernel.flops(d, N, B) / PEAK_FLOPS_PER_S[dtype])
 
 
 def vec_bwd(d: Dims) -> int:

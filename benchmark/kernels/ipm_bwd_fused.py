@@ -1,14 +1,14 @@
 """Sweep 1 of an IPM iteration: factorization, residuals, affine backward."""
-from benchmark.kernels import F32, vec_bwd
+from benchmark.kernels import vec_bwd
 
 PATTERN = r"::bwd_fused_kernel<"
 
 
-def moved_bytes(d, N, B):
+def entries(d, N, B):
     nx, nu, G = d.nx, d.nu, N * d.groups
     ins = N * (d.nnzA + d.nnzB) + 3 * (N + 1) * nx + 3 * N * nu + N * nx + 3 * G
     outs = N * nu * nx + N * nu * (nu + 1) // 2 + 2 * N * nx + N * nu + G + 1
-    return F32 * B * (ins + outs - 2 * nx)   # Qd and qx are read from stage 1
+    return B * (ins + outs - 2 * nx)   # Qd and qx are read from stage 1
 
 
 def flops(d, N, B):

@@ -1,14 +1,13 @@
 """Sweep 4: the corrector's forward rollout, deltas and step length."""
-from benchmark.kernels import F32
 
-PATTERN = r"::fwd_kernel<[^>]*true>"
+PATTERN = r"::fwd_kernel<[^(]*\btrue\b"
 
 
-def moved_bytes(d, N, B):
+def entries(d, N, B):
     nx, nu, G = d.nx, d.nu, N * d.groups
     ins = N * (d.nnzA + d.nnzB) + N * nu * nx + N * nu + N * nx + nx + 4 * G + 1
     outs = N * nx + N * nu + nx + 2 * G + 2
-    return F32 * B * (ins + outs)
+    return B * (ins + outs)
 
 
 def flops(d, N, B):

@@ -1,13 +1,12 @@
 """The solve's closing sweep: stationarity residual and complementarity."""
-from benchmark.kernels import F32
 
 PATTERN = r"::kkt_kernel<"
 
 
-def moved_bytes(d, N, B):
+def entries(d, N, B):
     nx, nu, G = d.nx, d.nu, N * d.groups
     ins = N * (d.nnzA + d.nnzB) + 3 * (N + 1) * nx + 3 * N * nu + 2 * G
-    return F32 * B * (ins + 2 - 3 * nx)   # Qd, qx, dx are read from stage 1
+    return B * (ins + 2 - 3 * nx)   # Qd, qx, dx are read from stage 1
 
 
 def flops(d, N, B):

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from benchmark import kernels as K
 
 
@@ -24,6 +26,7 @@ class Context:
     kernels: dict        # {name: kernel module}
     dims: dict           # {"tick.<group>": Dims}
     window: dict = dataclasses.field(default_factory=dict)  # the run's window numbers
+    dtype: torch.dtype = torch.float32     # the cell's precision: its launches' entries and rate
 
     def program_ops(self):
         """Device ops launched from inside a call into the program."""
@@ -34,14 +37,16 @@ class Context:
 
 
 def roofline(ctx: Context, only=None):
-    """Percent: the least time of the port's kernel launches over their
-    device time (``only``: one kernel's launches); None without a launch."""
+    """Percent: the least time of the port's kernel launches, in the cell's
+    precision, over their device time (``only``: one kernel's launches);
+    None without a launch."""
     least = spent = 0.0
     for op in ctx.program_ops():
         name = ctx.kernel_of(op)
         if name is None or (only is not None and name != only):
             continue
         robot, lanes = ctx.groups[op.label]
-        least += K.least_seconds(ctx.kernels[name], ctx.dims[op.label], robot.N, lanes)
+        least += K.least_seconds(ctx.kernels[name], ctx.dims[op.label], robot.N, lanes,
+                                 ctx.dtype)
         spent += op.end - op.start
     return 100.0 * least / spent if spent > 0 else None

@@ -7,18 +7,23 @@ heading, diagonal weights (the diff robot's x100 terminal pose weight when the
 last two pose references agree), one linearization by RK4 along the previous
 solution, and 8 Mehrotra predictor-corrector iterations with the step scaled
 by 0.995 of the distance to the boundary, slacks started at 0.3, lanes frozen
-below mu 1e-7 and slacks floored at 1e-9, barrier terms capped at 1e10 and
-1e-8 added to the input Hessian.  Each Newton system is solved by a dense
-stagewise Riccati recursion with ``torch.linalg``; Jacobians come from
-forward-mode AD.  Every tensor has a leading sample axis [M, ...].
+below mu_min, slacks floored and barrier terms capped by the guards of the
+arithmetic (``Prec.guards``), and 1e-8 added to the input Hessian.  Each
+Newton system is solved by a dense stagewise Riccati recursion with
+``torch.linalg``; Jacobians come from forward-mode AD.  Every tensor has a
+leading sample axis [M, ...].
 
-``Prec`` sets the arithmetic: float32 with TF32 off, the configuration's
-precision, for the comparison (``REF``), or float32 with every matrix
-product taken in TF32 (inputs rounded to 10 mantissa bits, as the tensor
-cores round them) for the control that must fail it (``TF32``).  Against
-float64 the program's float32 solves differ by what float32 itself costs
-on these QPs (up to ~1e-3 in the input trajectory where bounds are near
-active), as much as TF32 costs; two float32 computations agree far closer.
+``Prec`` sets the arithmetic, and ``reference``/``control`` give the two a
+configuration's precision calls for.  Float32: float32 with TF32 off for the
+comparison (``REF``), and float32 with every matrix product taken in TF32
+(inputs rounded to 10 mantissa bits, as the tensor cores round them) for the
+control that must fail it (``TF32``).  Against float64 the program's float32
+solves differ by what float32 itself costs on these QPs (up to ~1e-3 in the
+input trajectory where bounds are near active), as much as TF32 costs; two
+float32 computations agree far closer.  Float64: float64 for the comparison
+(``F64``), and plain float32 (``REF``) for the control, the nearest
+precision below: a program that computes in float32 where its configuration
+states float64 must fail.
 """
 from __future__ import annotations
 
@@ -31,7 +36,13 @@ from torch.func import jacfwd, vmap
 from benchmark.reference.models import Robot, command_of_refs, rk4, wheels_of_body
 
 ITERS, TAU, MU0, S_MIN, REG = 8, 0.995, 1.0, 0.3, 1e-8
-MU_MIN, S_FLOOR, D_CAP = 1e-7, 1e-9, 1e10
+# (mu_min, slack floor, barrier cap) of each arithmetic: a converged lane
+# stops stepping below mu_min, before its slacks underflow, and the floor and
+# the cap keep every lam/s finite near active bounds.  Float64's are tighter,
+# as its finer rounding allows: they are part of what a configuration states
+# when it asks for float64 (the same values as the port's float64 solve,
+# written out here, not read from it).
+GUARDS = {torch.float32: (1e-7, 1e-9, 1e10), torch.float64: (1e-14, 1e-11, 1e14)}
 TERMINAL_SCALE = 100.0
 
 
@@ -39,6 +50,11 @@ TERMINAL_SCALE = 100.0
 class Prec:
     dtype: torch.dtype = torch.float32
     tf32: bool = False
+
+    @property
+    def guards(self) -> tuple:
+        """(mu_min, slack floor, barrier cap) of this arithmetic."""
+        return GUARDS[self.dtype]
 
     def mm(self, a, b):
         if self.tf32:
@@ -48,6 +64,17 @@ class Prec:
 
 REF = Prec()
 TF32 = Prec(tf32=True)
+F64 = Prec(torch.float64)
+
+
+def reference(dtype) -> Prec:
+    """The arithmetic of the comparison for a configuration's ``dtype``."""
+    return {torch.float32: REF, torch.float64: F64}[dtype]
+
+
+def control(dtype) -> Prec:
+    """The control's arithmetic for ``dtype``: the nearest precision below."""
+    return {torch.float32: TF32, torch.float64: REF}[dtype]
 
 
 def to_tf32(x):
@@ -100,6 +127,7 @@ def solve_qp(prec: Prec, A, Bm, c, Qd, qx, Rd, qu, dx0, bounds, ibx):
     du_0..N-1) by the interior point above: (dxs, dus, mu)."""
     M, N, nx, nu = Bm.shape
     lbx, ubx, lbu, ubu = bounds
+    mu_min, s_floor, d_cap = prec.guards
     n_con = 2 * N * (lbx.shape[-1] + nu)
     mv = lambda Mat, v: prec.mm(Mat, v[..., None])[..., 0]  # noqa: E731
     At, Bt = A.mT, Bm.mT
@@ -116,8 +144,8 @@ def solve_qp(prec: Prec, A, Bm, c, Qd, qx, Rd, qu, dx0, bounds, ibx):
         rp = [g - s_ for g, s_ in zip(gaps(dxs, dus), s)]
         mu = sum((a * b).flatten(1).sum(1) for a, b in zip(s, lam)) / n_con
         Qb = Qd.clone()
-        Qb[:, 1:, ibx] += (lam[0] / s[0] + lam[1] / s[1]).clamp(max=D_CAP)
-        Rb = Rd + REG + (lam[2] / s[2] + lam[3] / s[3]).clamp(max=D_CAP)
+        Qb[:, 1:, ibx] += (lam[0] / s[0] + lam[1] / s[1]).clamp(max=d_cap)
+        Rb = Rd + REG + (lam[2] / s[2] + lam[3] / s[3]).clamp(max=d_cap)
         # Riccati factorization of the barrier-augmented Hessian.
         P = torch.diag_embed(Qb[:, N])
         Ps, Ks, Ls = [None] * (N + 1), [None] * N, [None] * N
@@ -177,9 +205,9 @@ def solve_qp(prec: Prec, A, Bm, c, Qd, qx, Rd, qu, dx0, bounds, ibx):
         ddx, ddu, ds, dl = newton(sigma * mu, [a3 * d1 * d2 for d1, d2 in zip(dsa, dla)])
         al = step(ds, dl)[:, None, None]
         new = [dxs + al * ddx, dus + al * ddu] + [
-            (v + al * d).clamp(min=S_FLOOR) for v, d in zip(s + lam, ds + dl)]
+            (v + al * d).clamp(min=s_floor) for v, d in zip(s + lam, ds + dl)]
         finite = torch.stack([torch.isfinite(t).flatten(1).all(1) for t in new]).all(0)
-        keep = (mu < MU_MIN) | ~finite
+        keep = (mu < mu_min) | ~finite
         old = [dxs, dus] + s + lam
         new = [torch.where(keep.reshape(-1, *[1] * (o.dim() - 1)), o, n_)
                for o, n_ in zip(old, new)]

@@ -9,9 +9,10 @@ window runs for ``--seconds`` and gives the cell's end-to-end metrics
 (``--trace 0``), or is followed by a few profiled ticks that give its
 per-layer metrics (``--trace 1``).  After the window the program's memory
 peak is read, its state freed, and the reference
-(``benchmark/reference/``, float32 as configured) recomputes the sampled ticks from the
-inputs the benchmark made: each compared number is printed beside its limit
-on the last lines of standard error and under ``checks`` in the result.
+(``benchmark/reference/``, in the configuration's precision) recomputes the
+sampled ticks from the inputs the benchmark made: each compared number is
+printed beside its limit on the last lines of standard error and under
+``checks`` in the result.
 Steadiness notes (rate or p50 by third of the window, ``nvidia-smi``
 clocks and power) go to standard error before them.
 """
@@ -56,7 +57,8 @@ def per_layer(cell, trace, info, window: dict) -> tuple:
     from benchmark.metrics import Context
 
     ctx = Context(trace, info["ticks"], info["groups"], K.load_all(),
-                  {label: K.dims(robot) for label, (robot, _) in info["groups"].items()}, window)
+                  {label: K.dims(robot) for label, (robot, _) in info["groups"].items()}, window,
+                  cell.dtype)
     metrics = {}
     for m in cell.per_layer:
         suffix = m["name"].split(".", 1)[1] if "." in m["name"] else ""
@@ -79,7 +81,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda") -> dic
 
     from benchmark import harness, loop
     from benchmark import trace as tr
-    from benchmark.reference.controller import REF
+    from benchmark.reference.controller import reference
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -118,7 +120,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda") -> dic
     _log("window:", json.dumps(notes))
     driver.release()
     t_check = time.perf_counter()
-    numbers = loop.worst([loop.gaps(prog, ref) for ref, prog in driver.outputs(REF, device)])
+    pairs = driver.outputs(reference(cell.dtype), device)
+    numbers = loop.worst([loop.gaps(prog, ref) for ref, prog in pairs])
     if numbers is None:        # no sampled tick fell inside the window: nothing judged
         numbers = {k: float("nan") for k in cell.check["limits"]}
     checks = harness.checks_of(numbers, cell.check["limits"])

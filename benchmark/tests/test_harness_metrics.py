@@ -119,6 +119,34 @@ def test_trace_readers_on_a_made_up_trace(tmp_path):
     assert harness.reader("cycle_ms_p99").read(ctx, "") == 12.25
 
 
+def test_the_roofline_reckons_a_float64_launch_at_8_byte_entries(tmp_path):
+    """The same launch on the same trace, counted at a float64 cell's
+    precision: these sweeps are bound by their bytes at either rate, so the
+    least time, and with it the share of the roofline, doubles."""
+    import torch
+
+    robot = robot_from_yaml(json.loads((HERE / "configs" / "omni4_n80.json").read_text()))
+    ev = [_event("user_annotation", "traced_window", 0, 10_000),
+          _event("user_annotation", "tick.node", 1_000, 3_000),
+          _event("cuda_runtime", "cudaGraphLaunch", 1_100, 50, corr=1),
+          _event("kernel", "void (anonymous namespace)::fwd_kernel<Omni4Config, true>(P)",
+                 1_200, 300, corr=1)]
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps({"traceEvents": ev}))
+    t = read_chrome_trace(path)
+    d, kern = K.dims(robot), K.load_all()["ipm_fwd_corr"]
+    assert K.moved_bytes(kern, d, robot.N, 1) / 3.35e12 > kern.flops(d, robot.N, 1) / 34e12
+    read = {}
+    for dtype in (torch.float32, torch.float64):
+        ctx = Context(t, 1, {"tick.node": (robot, 1)}, K.load_all(), {"tick.node": d},
+                      dtype=dtype)
+        read[dtype] = harness.reader("ipm_fwd_corr_roofline.cycle").read(ctx, "cycle")
+        assert read[dtype] == harness.reader("kernels_roofline.cycle").read(ctx, "cycle")
+    assert read[torch.float32] == pytest.approx(
+        100 * 4 * kern.entries(d, robot.N, 1) / 3.35e12 / 0.0003)
+    assert read[torch.float64] == pytest.approx(2 * read[torch.float32])
+
+
 def test_node_gaps_are_also_split_by_samples_on_a_new_path():
     import torch
 
