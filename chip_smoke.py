@@ -344,15 +344,19 @@ def _ptxas_kernels(log):
     for fn, spill, used in re.findall(
             r"entry function '(\w+)' for \S+\n.*\n\s*\d+ bytes stack frame, "
             r"(\d+) bytes spill stores.*\n.*Used (\d+ registers.*)", log):
-        m = re.search(r"([a-z]+(?:_[a-z]+)*_kernel)I(?:\d+(\w+?Config)(?:Lb([01])E)?|Li(\d+)ELi(\d+)E)E", fn)
+        m = re.search(r"([a-z]+(?:_[a-z]+)*_kernel)(?:I(?:\d+(\w+?Config)Li(\d)E(?:Lb([01])E)?|"
+                      r"Li(\d+)ELi(\d+)E)E|(I)?)", fn)
+        if m.group(7):
+            raise ValueError(f"ptxas log: template arguments of {fn} not understood")
         if m.group(2):
-            targs = m.group(2) + ("" if m.group(3) is None else (", true" if m.group(3) == "1"
-                                                                 else ", false"))
-        else:
-            targs = f"{m.group(4)}, {m.group(5)}"
+            key = f"{m.group(1)}<{m.group(2)}, {m.group(3)}" + (
+                "" if m.group(4) is None else (", true" if m.group(4) == "1" else ", false")) + ">"
+        elif m.group(5):
+            key = f"{m.group(1)}<{m.group(5)}, {m.group(6)}>"
+        else:                                   # no template: trace_mark_kernel
+            key = m.group(1)
         smem = re.search(r"(\d+) bytes smem", used)
-        out[f"{m.group(1)}<{targs}>"] = (int(used.split()[0]), int(spill),
-                                          int(smem.group(1)) if smem else 0)
+        out[key] = (int(used.split()[0]), int(spill), int(smem.group(1)) if smem else 0)
     return out
 
 
@@ -428,10 +432,12 @@ def _bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# Kernel template of each wrapper, as ptxas names it (phase 1).
-IPM_KERNEL = {"ipm_bwd_fused": "bwd_fused_kernel<{}>", "ipm_fwd_affine": "fwd_kernel<{}, false>",
-              "ipm_bwd_corr": "bwd_corr_kernel<{}>", "ipm_fwd_corr": "fwd_kernel<{}, true>",
-              "ipm_kkt_fused": "kkt_kernel<{}>"}
+# Kernel template of each wrapper, as ptxas names it (phase 1): the
+# configuration, then the launch plan (0 batched, 1 one-lane).
+IPM_KERNEL = {"ipm_bwd_fused": "bwd_fused_kernel<{}, {}>",
+              "ipm_fwd_affine": "fwd_kernel<{}, {}, false>",
+              "ipm_bwd_corr": "bwd_corr_kernel<{}, {}>", "ipm_fwd_corr": "fwd_kernel<{}, {}, true>",
+              "ipm_kkt_fused": "kkt_kernel<{}, {}>"}
 CONFIG = {"diff": "DiffConfig", "omni4": "Omni4Config"}
 RICCATI_KERNEL = {"riccati_factor": "factor_kernel<{}, {}>",
                   "riccati_solve_bwd": "solve_bwd_kernel<{}, {}>",
@@ -2174,9 +2180,10 @@ def main() -> int:
     record["launch"] = {}
     for config, cfg in cfgs.items():
         x = random_sweep_inputs(cfg.nx, cfg.nu, cfg.nbx, cfg.nbu, cfg.asp, cfg.bsp, N, 17, seed=17)
+        plan = tp.PLANS.index(tp.plan(cfg.cuda_config, N, 17))
         for name, (kern, _, _) in _sweep_calls(torch, tp, cfg, x, dev).items():
-            _print_launch(torch, record, ptxas, name, IPM_KERNEL[name].format(CONFIG[config]),
-                          kern)
+            _print_launch(torch, record, ptxas, name,
+                          IPM_KERNEL[name].format(CONFIG[config], plan), kern)
     for nx, nu in ((7, 2), (11, 4)):
         calls = _riccati_calls(torch, rf, random_riccati_inputs(nx, nu, N, 17, seed=17), dev)
         for name, (kern, _, _, _) in calls.items():
@@ -2195,21 +2202,26 @@ def main() -> int:
 
     # ---- Phase 2: each IPM sweep kernel against its plain version. ----
     # The JSON line carries the diff numbers (the main path of phase 3); the
-    # omni4 specialisation is checked and timed too (phase 8's path).  N=80
-    # at B=17 (ragged, rows not 16-byte aligned) and at B=1 (phase 12's
-    # node tick) holds the kernels at the reference's horizon, N=13 a short
-    # last chunk; B=1 gives each kernel's device time for one lane.
+    # omni4 specialisation is checked and timed too (phase 8's path).  Each
+    # horizon meets both launch plans (ops.ipm_fused.plan): the batched plan
+    # at B=2048 and 1000 (the fleet's and the sweep's shapes) and at B=133
+    # (ragged, rows not 16-byte aligned), the one-lane plan at B=1 (phase
+    # 12's node tick) and B=17 (strided rows).  N=80 is the reference's
+    # horizon, N=13 a short last chunk; B=1 gives each kernel's device time
+    # for one lane.
     record["ipm_omni4"], record["device_ms_B1"], record["device_ms_B1_N80"] = {}, {}, {}
     for config, cfg in cfgs.items():
         nx, nu, nbx, nbu = cfg.nx, cfg.nu, cfg.nbx, cfg.nbu
-        for lanes, horizon in ((2048, N), (1, N), (1000, N), (17, 2 * N), (1, 2 * N),
-                               (17, 13)):
+        for lanes, horizon in ((2048, N), (1, N), (1000, N), (2048, 2 * N), (133, 2 * N),
+                               (17, 2 * N), (1, 2 * N), (133, 13), (17, 13)):
             x = random_sweep_inputs(nx, nu, nbx, nbu, cfg.asp, cfg.bsp, horizon, lanes, seed=lanes)
+            plan = tp.plan(cfg.cuda_config, horizon, lanes)
             for name, (kern, plain, args) in _sweep_calls(torch, tp, cfg, x, dev).items():
                 got, ref = kern(), plain()
                 torch.cuda.synchronize()
                 abs_err, rel_err, excess = _errors(torch, got, ref)
-                print(f"phase 2 {name} {config} N={horizon} B={lanes}: max abs err {abs_err:.3e}, "
+                print(f"phase 2 {name} {config} N={horizon} B={lanes} ({plan}): "
+                      f"max abs err {abs_err:.3e}, "
                       f"max rel err {rel_err:.3e}, worst err/(atol+rtol|ref|) {excess:.3f}")
                 if not excess <= 1.0:
                     raise AssertionError(f"{name} {config} N={horizon} B={lanes}: kernel "
@@ -2221,7 +2233,7 @@ def main() -> int:
                     print(f"phase 2 {name} {config} N={horizon} B=1: device {dev_ms} ms")
                     key = "device_ms_B1" if horizon == N else "device_ms_B1_N80"
                     record[key][f"{name}/{config}"] = dev_ms
-                if lanes != 2048:
+                if (lanes, horizon) != (2048, N):
                     continue
                 ms, plain_ms, dev_ms = _time_pair(torch, kern, plain)
                 bound_ms, bound_by = _bound(
@@ -2397,7 +2409,7 @@ def main() -> int:
                     print(f"phase 6 {name} ({nx},{nu}) N={horizon} B=1: device {dev_ms} ms")
                     key = "device_ms_B1" if horizon == N else "device_ms_B1_N80"
                     record[key][f"{name}/{nx}x{nu}"] = dev_ms
-                if lanes != 2048:
+                if (lanes, horizon) != (2048, N):
                     continue
                 ms, plain_ms, dev_ms = _time_pair(torch, kern, plain)
                 bound_ms, bound_by = _bound(_moved_bytes(name, args, tuple(got), nx, lanes),

@@ -23,8 +23,12 @@
 // Bound.  Each stage reads 60-180 floats per lane and does a few hundred to
 // a few thousand flops on them, and a lane's stages run in sequence, so each
 // sweep is bound by its serial chain per lane and by memory latency, far
-// from the card's bandwidth or flop rate.  Every sweep splits a lane's
-// stages so that only the carry is sequential:
+// from the card's bandwidth or flop rate.  Each sweep has two launch plans,
+// picked by plan_of from N and B alone: the batched plans below, for many
+// lanes, and the one-lane plans (a block a lane, its chain spread over a
+// warp; the section before the launchers), for the few lanes of a robot's
+// node.  In the batched plans every sweep splits a lane's stages so that
+// only the carry is sequential:
 //
 //   fwd_kernel (ipm_fwd_affine, ipm_fwd_corr): a block owns kSweepLanes lanes
 //   and walks the horizon in chunks of S stages.  Warp 0 rolls the chunk out
@@ -67,6 +71,7 @@
 // division.  min/max propagate NaN like jnp.minimum/jnp.maximum.
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
 #include <type_traits>
 #include <utility>
@@ -216,6 +221,18 @@ struct Groups {
   }
 };
 
+// Each kernel is a template on its launch plan (an int, so a kernel's name in
+// a trace says which plan ran): kBatched, the chunked plans above, or
+// kOneLane, the one-lane plans of the section before the launchers.
+constexpr int kBatched = 0, kOneLane = 1;
+
+template <class C>
+struct BwdLane;
+template <class C, bool CORR>
+struct FwdLane;
+template <class C, bool KKT>
+struct VecLane;
+
 // --------------------------------------------------------------------------
 // Kernel 1: fused backward sweep (factor + residuals + affine recursion + mu)
 // --------------------------------------------------------------------------
@@ -272,8 +289,14 @@ struct BwdPlan {
 };
 
 template <class C>
-__global__ void __launch_bounds__(BwdPlan<C>::THREADS, 2)
+__device__ __forceinline__ void bwd_fused_lane(BwdFusedArgs a, int N, int B, float reg,
+                                               float d_cap);
+
+template <class C, int PLAN>
+__global__ void __launch_bounds__(PLAN == kOneLane ? BwdLane<C>::THREADS : BwdPlan<C>::THREADS,
+                                  PLAN == kOneLane ? 1 : 2)
     bwd_fused_kernel(BwdFusedArgs a, int N, int B, float reg, float d_cap) {
+  if constexpr (PLAN == kOneLane) return bwd_fused_lane<C>(a, N, B, reg, d_cap);
   using S = Shape<C>;
   using Pl = BwdPlan<C>;
   using PA = typename C::A;
@@ -741,7 +764,13 @@ __device__ __forceinline__ void load_packed_smem(float (&M)[R][Cc], const float*
 }
 
 template <class C, bool CORR>
-__global__ void __launch_bounds__(FwdPlan<C>::THREADS) fwd_kernel(FwdArgs a, int N, int B, float tau) {
+__device__ __forceinline__ void fwd_lane(FwdArgs a, int N, int B, float tau);
+
+template <class C, int PLAN, bool CORR>
+__global__ void __launch_bounds__(PLAN == kOneLane ? FwdLane<C, CORR>::THREADS
+                                                   : FwdPlan<C>::THREADS)
+    fwd_kernel(FwdArgs a, int N, int B, float tau) {
+  if constexpr (PLAN == kOneLane) return fwd_lane<C, CORR>(a, N, B, tau);
   using S = Shape<C>;
   using F = FwdPlan<C>;
   using PA = typename C::A;
@@ -974,8 +1003,13 @@ struct BwdCorrArgs {
 // gradients (sigma mu - corr)/s - (lam/s) rp, gx, gu and w before it, and
 // kff = -(L L')^{-1} qu_bar after it (fan-out).
 template <class C>
-__global__ void __launch_bounds__(VecPlan<C, false>::THREADS)
+__device__ __forceinline__ void bwd_corr_lane(BwdCorrArgs a, int N, int B);
+
+template <class C, int PLAN>
+__global__ void __launch_bounds__(PLAN == kOneLane ? VecLane<C, false>::THREADS
+                                                   : VecPlan<C, false>::THREADS)
     bwd_corr_kernel(BwdCorrArgs a, int N, int B) {
+  if constexpr (PLAN == kOneLane) return bwd_corr_lane<C>(a, N, B);
   using S = Shape<C>;
   using F = VecPlan<C, false>;
   using PA = typename C::A;
@@ -1084,8 +1118,13 @@ struct KKTArgs {
 // gx, gu and each (stage, lane)'s share of sum s*lam before it (fan-out),
 // the shares reduced per lane at the end.
 template <class C>
-__global__ void __launch_bounds__(VecPlan<C, true>::THREADS)
+__device__ __forceinline__ void kkt_lane(KKTArgs a, int N, int B);
+
+template <class C, int PLAN>
+__global__ void __launch_bounds__(PLAN == kOneLane ? VecLane<C, true>::THREADS
+                                                   : VecPlan<C, true>::THREADS)
     kkt_kernel(KKTArgs a, int N, int B) {
+  if constexpr (PLAN == kOneLane) return kkt_lane<C>(a, N, B);
   using S = Shape<C>;
   using F = VecPlan<C, true>;
   using PA = typename C::A;
@@ -1157,6 +1196,1037 @@ __global__ void __launch_bounds__(VecPlan<C, true>::THREADS)
 }
 
 // --------------------------------------------------------------------------
+// The one-lane plans (kOneLane)
+// --------------------------------------------------------------------------
+//
+// At a small batch the batched plans leave most of the card idle and run
+// each lane's chain on one thread (or one team), chunk by chunk, so a sweep
+// takes its chain's latency times N plus a block barrier a chunk.  The
+// one-lane plans give each lane a block of its own:
+//
+//   1. The lane's whole horizon of the chain's operands goes into shared
+//      memory in one burst of cp.async copies (16 bytes where B = 1 and the
+//      rows are aligned), and the carry-free work of every stage (gaps,
+//      barrier diagonals, gradients, r_dyn) runs at once, one thread a stage.
+//   2. The chain is spread over threads, one per output entry: a warp, lane i
+//      owning entry i of the vector carry, exchanged by shuffles (fwd: du_i
+//      then dx'_i; bwd_corr: p_i; kkt: nu_i), each stage's operands read
+//      one stage ahead and no branch in the stage (lanes past the carry's
+//      length repeat the last lane's work, a term off the pattern is dropped
+//      by a select); for bwd_fused one thread per entry of (P + Q)[A | B],
+//      then of Qux and A'PA while one warp forms Quu and factors it, then of
+//      the new P, under a named barrier of the chain's warps, and its affine
+//      vector recursion one stage behind in a warp that phase 2 leaves idle.
+//   3. The work that follows the chain (the forward sweeps' bound entries,
+//      bwd_corr's kff) runs over all stages at once; the per-lane reductions
+//      run across the block.
+//
+// Every entry is summed over the same terms in the same order as in the
+// batched plans, with the same helpers, and the per-lane sums (musum, c12)
+// are folded in the batched plans' chunk order, so the two plans give a
+// lane the same outputs to the bit.  plan_of picks the plan from N and B
+// alone.
+
+// The most dynamic shared memory a block may take on Hopper (227 KB).
+constexpr int kLaneSmemBytes = 232448;
+// The one-lane plans serve B up to this many lanes (a block a lane): on the
+// H100 at N=80 they beat the batched plans at every B up to 132 and lose
+// for omni4 from 200, where two blocks share an SM.
+constexpr int kOneLaneMaxB = 132;
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+
+// The largest horizon whose layout L(N) fits kLaneSmemBytes.
+template <class L>
+constexpr int lane_fit() {
+  int n = 0;
+  while (L::floats(n + 1) * 4 <= kLaneSmemBytes) ++n;
+  return n;
+}
+
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Lane b of n consecutive entries of a [rows, E, B] tensor (n = rows * E from
+// its first row) into dst[0, n), 16-byte aligned: 16-byte copies where B = 1
+// and src is aligned, else one entry a copy at stride B.
+__device__ __forceinline__ void copy_lane(float* dst, const float* src, int n, int B, int b,
+                                          int t, int nt) {
+  if (B == 1 && reinterpret_cast<size_t>(src) % 16 == 0) {
+    const int n4 = n / 4;
+#pragma unroll 1
+    for (int i = t; i < n4; i += nt) cp_async16(dst + 4 * i, src + 4 * i);
+#pragma unroll 1
+    for (int i = 4 * n4 + t; i < n; i += nt) cp_async4(dst + i, src + i);
+  } else {
+#pragma unroll 1
+    for (int i = t; i < n; i += nt) cp_async4(dst + i, src + static_cast<size_t>(i) * B + b);
+  }
+}
+
+// Index of entry (i, j) among the structural nonzeros of the R x Cc pattern
+// P, row-major (its place in a packed row); -1 off the pattern.
+template <class P, int R, int Cc>
+__host__ __device__ constexpr int packed_at(int i, int j) {
+  int e = 0;
+  for (int k = 0; k < i * Cc + j; ++k) e += P::nz(k / Cc, k % Cc) ? 1 : 0;
+  return P::nz(i, j) ? e : -1;
+}
+
+// off[m] = packed index of (i, m) (ROW) or (m, i), for a row or column i
+// known only at run time (a lane's): each line's indices are template
+// constants, chosen by a chain of selects, like col_mask.
+template <class P, int R, int Cc, bool ROW, int I, int... M>
+__device__ __forceinline__ void put_line(int (&off)[ROW ? Cc : R], std::integer_sequence<int, M...>) {
+  ((off[M] = std::integral_constant<int, ROW ? packed_at<P, R, Cc>(I, M)
+                                             : packed_at<P, R, Cc>(M, I)>::value),
+   ...);
+}
+
+template <class P, int R, int Cc, bool ROW, int... I>
+__device__ __forceinline__ void line_offsets_of(int i, int (&off)[ROW ? Cc : R],
+                                                std::integer_sequence<int, I...>) {
+#pragma unroll
+  for (int m = 0; m < (ROW ? Cc : R); ++m) off[m] = -1;
+  ((i == I ? put_line<P, R, Cc, ROW, I>(off, std::make_integer_sequence<int, ROW ? Cc : R>{})
+           : void()),
+   ...);
+}
+
+template <class P, int R, int Cc, bool ROW>
+__device__ __forceinline__ void line_offsets(int i, int (&off)[ROW ? Cc : R]) {
+  line_offsets_of<P, R, Cc, ROW>(i, off, std::make_integer_sequence<int, ROW ? R : Cc>{});
+}
+
+// yes where bit (0 or 1) is 1, else no, bit for bit: a select in integer
+// logic, which holds no predicate register (a masked dot keeps a mask a term,
+// more than the seven predicates a thread has).
+__device__ __forceinline__ float keep(unsigned bit, float yes, float no) {
+  const int m = -static_cast<int>(bit);
+  return __int_as_float((__float_as_int(yes) & m) | (__float_as_int(no) & ~m));
+}
+
+// The entries of that line of a packed stage p, each read at an address
+// that is always valid (an entry off the pattern reads entry 0).
+template <int E>
+__device__ __forceinline__ void load_line(float (&a)[E], const float* p, const int (&off)[E]) {
+#pragma unroll
+  for (int m = 0; m < E; ++m) a[m] = p[off[m] < 0 ? 0 : off[m]];
+}
+
+// row_dot / col_dot of a line so loaded: the same terms in the same order;
+// a term off the pattern is dropped by a select, not a branch.
+template <int E>
+__device__ __forceinline__ float line_dot(const float (&a)[E], const int (&off)[E],
+                                          const float (&v)[E]) {
+  float s = 0.f;
+#pragma unroll
+  for (int m = 0; m < E; ++m) s = keep(static_cast<unsigned>(~off[m]) >> 31, s + a[m] * v[m], s);
+  return s;
+}
+
+// Entry i of v, for an i known only at run time, by a chain of selects.
+template <int E>
+__device__ __forceinline__ float pick(const float (&v)[E], int i) {
+  float r = v[0];
+#pragma unroll
+  for (int m = 1; m < E; ++m) r = i == m ? v[m] : r;
+  return r;
+}
+
+// Every lane of the warp gets the E values that lanes 0 .. E-1 hold.
+template <int E>
+__device__ __forceinline__ void gather(float (&v)[E], float mine) {
+#pragma unroll
+  for (int m = 0; m < E; ++m) v[m] = __shfl_sync(0xffffffffu, mine, m);
+}
+
+// (i, j), j <= i, of the e-th entry of a lower triangle stored row-major.
+__device__ __forceinline__ void tri_at(int e, int& i, int& j) {
+  i = 0;
+  while ((i + 1) * (i + 2) / 2 <= e) ++i;
+  j = e - i * (i + 1) / 2;
+}
+
+// ---- bwd_fused, one lane ---------------------------------------------------
+
+// A block of THREADS: CT chain threads and the warp that folds sum s*lam.
+// The chain runs a stage in three phases, each closed by a named barrier of
+// the chain's warps: (1) a thread per entry of (P + Q)[A | B] and of Pc; (2)
+// a thread per entry of Qux and of A'(P + Q)A, while warp WQ forms Quu and
+// factors it (the Cholesky, the longest step, so overlapping the rest of
+// phase 2) and warp WV runs the affine vector recursion of the stage before
+// (its K, L and Pc are complete by then); (3) a thread per entry of the new
+// carry P, with column j of K where i = j.  Shared memory: the chain's
+// matrices (fixed), then a slot per stage: A and B dense (entries off the
+// pattern never written and never read), the barrier-modified diagonals,
+// the gradients and r_dyn (as BwdPlan's slot), then the stage's K
+// (row-major), L and Pc.
+template <class C>
+struct BwdLane {
+  static constexpr int NX = C::NX, NU = C::NU, NTRU = NU * (NU + 1) / 2, NC = NX + NU;
+  static constexpr int PX = (NX + 3) / 4 * 4;
+  static constexpr int P1 = NX * NC + NX, P2 = NU * NX + NX * (NX + 1) / 2;
+  static constexpr int CT = ((P1 > P2 + 64 ? P1 : P2 + 64) + 31) / 32 * 32, THREADS = CT + 32;
+  static constexpr int WQ = CT / 32 - 2, WV = CT / 32 - 1;
+  static_assert(P2 <= WQ * 32 && NTRU <= 32 && NX <= 32, "phases 2 and 3 need a thread an entry");
+  static constexpr int OA = 0, OB = NX * NX, OQB = OB + NX * NU, ORB = OQB + NX, OGX = ORB + NU,
+                       OGU = OGX + NX, ORD = OGU + NU, OK = ORD + NX, OL = OK + NU * NX,
+                       OP = OL + NTRU, SLOT = round4(OP + NX);
+  // Fixed part: P, (P + Q)[A | B], Qux, the stage's reciprocal pivots, A'(P + Q)A.
+  static constexpr int FP = 0, FPA = FP + round4(NX * PX), FQX = FPA + round4(NX * NC),
+                       FINV = FQX + round4(NU * NX), FAPA = FINV + round4(NU),
+                       FIXED = FAPA + round4(NX * NX);
+  __host__ __device__ static constexpr int floats(int N) { return FIXED + N * SLOT; }
+};
+
+// Stage k of lane b: A and B dense and r_dyn (also to global memory), as
+// bwd_fused_kernel's prepare_ab.
+template <class C>
+__device__ __forceinline__ void lane_prepare_ab(const BwdFusedArgs& a, int k, int B, int b,
+                                                float* R) {
+  using S = Shape<C>;
+  using L = BwdLane<C>;
+  using PA = typename C::A;
+  using PB = typename C::B;
+  constexpr int NX = S::NX, NU = S::NU;
+  float A[NX][NX], Bm[NX][NU], dx0[NX], dx1[NX], du[NU], cc[NX];
+  load_packed<PA>(A, a.A, k, S::NNZA, B, b);
+  load_packed<PB>(Bm, a.Bm, k, S::NNZB, B, b);
+  load_vec(dx0, a.dx, k, B, b);
+  load_vec(dx1, a.dx, k + 1, B, b);
+  load_vec(du, a.du, k, B, b);
+  load_vec(cc, a.c, k, B, b);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    const float r = cc[i] - dx1[i] + row_dot<PA>(A, i, dx0) + row_dot<PB>(Bm, i, du);
+    R[L::ORD + i] = r;
+    st(a.rdyn, k, i, NX, B, b, r);
+#pragma unroll
+    for (int m = 0; m < NX; ++m)
+      if (PA::nz(i, m)) R[L::OA + i * NX + m] = A[i][m];
+#pragma unroll
+    for (int m = 0; m < NU; ++m)
+      if (PB::nz(i, m)) R[L::OB + i * NU + m] = Bm[i][m];
+  }
+}
+
+// Stage k of lane b: the primal residuals (to global memory), the barrier-
+// modified diagonals and the gradients, as bwd_fused_kernel's
+// prepare_bounds; sum s*lam is folded apart (bwd_fused_lane).
+template <class C>
+__device__ __forceinline__ void lane_prepare_bounds(const BwdFusedArgs& a, int k, int B, int b,
+                                                    float reg, float d_cap, float* R) {
+  using S = Shape<C>;
+  using L = BwdLane<C>;
+  constexpr int NX = S::NX, NU = S::NU, NBX = S::NBX, NBU = S::NBU;
+  float Qd1[NX], qx1[NX], Rd[NU], qu[NU], dx1[NX], du[NU];
+  load_vec(dx1, a.dx, k + 1, B, b);
+  load_vec(du, a.du, k, B, b);
+  load_vec(Qd1, a.Qd, k + 1, B, b);
+  load_vec(qx1, a.qx, k + 1, B, b);
+  load_vec(Rd, a.Rd, k, B, b);
+  load_vec(qu, a.qu, k, B, b);
+  Groups<C> s, l, bd;
+  s.load(a.s, k, B, b);
+  l.load(a.l, k, B, b);
+  bd.load(a.bnd, k, B, b);
+  auto pair = [&](float z, float lb, float ub, float sl, float su, float ll, float lu,
+                  float* rpl_out, float* rpu_out, float& diag, float& g) {
+    const float rpl = z - lb - sl, rpu = ub - z - su;
+    *rpl_out = rpl;
+    *rpu_out = rpu;
+    const float rl = ll / sl, ru = lu / su;
+    diag += min_nan(rl + ru, d_cap);
+    g += -ru * rpu - -rl * rpl;
+  };
+  float qb[NX], gx[NX], rb[NU], gu[NU];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    qb[i] = Qd1[i];
+    gx[i] = Qd1[i] * dx1[i] + qx1[i];
+  }
+#pragma unroll
+  for (int i = 0; i < NU; ++i) {
+    rb[i] = Rd[i] + reg;
+    gu[i] = Rd[i] * du[i] + qu[i];
+  }
+  const size_t kb = static_cast<size_t>(k);
+#pragma unroll
+  for (int jb = 0; jb < NBX; ++jb) {
+    const int i = C::IDXBX::at(jb);
+    const size_t o = (kb * NBX + jb) * B + b;
+    pair(dx1[i], bd.x[0][jb], bd.x[1][jb], s.x[0][jb], s.x[1][jb], l.x[0][jb], l.x[1][jb],
+         a.rp.g[0] + o, a.rp.g[1] + o, qb[i], gx[i]);
+  }
+#pragma unroll
+  for (int jb = 0; jb < NBU; ++jb) {
+    const int i = C::IDXBU::at(jb);
+    const size_t o = (kb * NBU + jb) * B + b;
+    pair(du[i], bd.u[0][jb], bd.u[1][jb], s.u[0][jb], s.u[1][jb], l.u[0][jb], l.u[1][jb],
+         a.rp.g[2] + o, a.rp.g[3] + o, rb[i], gu[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    R[L::OQB + i] = qb[i];
+    R[L::OGX + i] = gx[i];
+  }
+#pragma unroll
+  for (int i = 0; i < NU; ++i) {
+    R[L::ORB + i] = rb[i];
+    R[L::OGU + i] = gu[i];
+  }
+}
+
+// The Cholesky factor of Quu (lower triangle q) and its reciprocal pivots,
+// entry by entry as in bwd_fused_kernel, spread over a warp column by
+// column: every lane takes the square root of the pivot; in one division,
+// lane i > j divides out entry (i, j) and lane j the reciprocal pivot (a
+// correctly rounded 1 / L_jj, the same bits as bwd_fused_kernel's 1.f /
+// L_jj); shuffles hand the column to every lane, so every lane ends with all
+// of L and inv.  The IEEE steps in sequence fall from NU(NU + 3)/2 to 2 NU.
+template <int NU>
+__device__ __forceinline__ void chol_factor_warp(const float (&q)[NU][NU],
+                                                 float (&Lv)[NU * (NU + 1) / 2], float (&inv)[NU],
+                                                 int lane) {
+#pragma unroll
+  for (int j = 0; j < NU; ++j) {
+    float t = q[j][j];
+#pragma unroll
+    for (int m = 0; m < j; ++m) t -= Lv[tri(j, m)] * Lv[tri(j, m)];
+    Lv[tri(j, j)] = sqrtf(t);
+    float num = 1.f;
+#pragma unroll
+    for (int i = j + 1; i < NU; ++i) {
+      float u = q[i][j];
+#pragma unroll
+      for (int m = 0; m < j; ++m) u -= Lv[tri(i, m)] * Lv[tri(j, m)];
+      num = lane == i ? u : num;
+    }
+    const float r = num / Lv[tri(j, j)];
+#pragma unroll
+    for (int i = j + 1; i < NU; ++i) Lv[tri(i, j)] = __shfl_sync(0xffffffffu, r, i);
+    inv[j] = __shfl_sync(0xffffffffu, r, j);
+  }
+}
+
+template <class C>
+__device__ __forceinline__ void bwd_fused_lane(BwdFusedArgs a, int N, int B, float reg,
+                                               float d_cap) {
+  using S = Shape<C>;
+  using L = BwdLane<C>;
+  using PA = typename C::A;
+  using PB = typename C::B;
+  constexpr int NX = S::NX, NU = S::NU, NBX = S::NBX, NBU = S::NBU, NTRU = S::NTRU;
+  constexpr int NC = L::NC, PX = L::PX, CT = L::CT;
+  extern __shared__ __align__(16) float smem[];
+  float* P = smem + L::FP;       // P_core (no stage diagonal), dense and symmetric
+  float* PAm = smem + L::FPA;    // (P_core + diag qbar)[A | B], [NX][NC]
+  float* QX = smem + L::FQX;     // Qux [NU][NX]
+  float* INV = smem + L::FINV;   // 1 / L_ii of the stage
+  float* APA = smem + L::FAPA;   // A'(P_core + diag qbar)A, lower triangle of [NX][NX]
+  float* slots = smem + L::FIXED;
+  const int tid = threadIdx.x, b = blockIdx.x;
+
+#pragma unroll 1
+  for (int i = tid; i < NX * PX; i += L::THREADS) P[i] = 0.f;
+#pragma unroll 1
+  for (int it = tid; it < 2 * N; it += L::THREADS) {
+    const int k = it < N ? it : it - N;
+    if (it < N) {
+      lane_prepare_ab<C>(a, k, B, b, slots + k * L::SLOT);
+    } else {
+      lane_prepare_bounds<C>(a, k, B, b, reg, d_cap, slots + k * L::SLOT);
+    }
+  }
+  __syncthreads();
+
+  if (tid < CT) {
+    // ---- The Riccati chain, stage by stage from the last.  Phase 1: entry
+    // (i1, j1) of (P + Q)[A | B], or Pc_jc.
+    const int t = tid, w = t / 32, lane = t % 32;
+    const int i1 = t / NC, j1 = t % NC, jc = t - NX * NC;
+    const bool pa = t < NX * NC, pc = !pa && jc < NX;
+    const unsigned mcol = !pa ? 0u : j1 < NX ? col_mask<PA, NX, NX>(j1) : col_mask<PB, NX, NU>(j1 - NX);
+    const int mbase = j1 < NX ? L::OA + j1 : L::OB + (j1 - NX), mstride = j1 < NX ? NX : NU;
+    // Phase 2: column c2 of A or B (its mask m2, entry m at base2 + m *
+    // stride2) against column s2 of (P + Q)[A | B], to d2; in warp WQ, lane
+    // e < NTRU forms entry (iq, jq) of Quu (column iq of B against column
+    // NX + jq), adding rbar on the diagonal.
+    int d2 = -1, s2 = 0, base2 = 0, stride2 = NU;
+    unsigned m2 = 0u;
+    if (t < NU * NX) {            // Qux[u][j] = (B' (P + Q) A)_{u j}
+      const int u = t / NX, j = t % NX;
+      d2 = L::FQX + t, s2 = j, base2 = L::OB + u, m2 = col_mask<PB, NX, NU>(u);
+    } else if (t < L::P2) {       // A'(P + Q)A, lower
+      int i, j;
+      tri_at(t - NU * NX, i, j);
+      d2 = L::FAPA + i * NX + j, s2 = j, base2 = L::OA + i, stride2 = NX;
+      m2 = col_mask<PA, NX, NX>(i);
+    }
+    int iq = 0, jq = 0;
+    tri_at(w == L::WQ && lane < NTRU ? lane : 0, iq, jq);
+    const unsigned mq = col_mask<PB, NX, NU>(iq);
+    // Phase 3: entry (i3, j3), j3 <= i3, of the new carry, and column j3 of K
+    // where i3 = j3.
+    const bool p3 = t < NX * (NX + 1) / 2;
+    int i3 = 0, j3 = 0;
+    tri_at(p3 ? t : 0, i3, j3);
+    // Warp WV: the affine vector recursion of stage kv, lane j owning p_j:
+    // tmp = p + gx + Pc, qu_bar = gu + B' tmp, kff = -(L L')^{-1} qu_bar, p <-
+    // A' tmp + K' qu_bar.  Lanes past NX repeat lane NX - 1's work; nothing
+    // reads theirs.
+    const int jx = min(lane, NX - 1);
+    const unsigned amask = col_mask<PA, NX, NX>(jx);
+    float p = 0.f;
+    auto vector = [&](int kv) {
+      const float* R = slots + kv * L::SLOT;
+      float tmp[NX], qub[NU];
+      gather<NX>(tmp, p + R[L::OGX + jx] + R[L::OP + jx]);
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        float s = 0.f;
+#pragma unroll
+        for (int m = 0; m < NX; ++m)
+          if (PB::nz(m, u)) s += R[L::OB + m * NU + u] * tmp[m];
+        qub[u] = R[L::OGU + u] + s;
+      }
+      float at = 0.f, kt = 0.f;
+#pragma unroll
+      for (int m = 0; m < NX; ++m) {
+        at = keep((amask >> m) & 1u, at + R[L::OA + m * NX + jx] * tmp[m], at);
+      }
+#pragma unroll
+      for (int u = 0; u < NU; ++u) kt += R[L::OK + u * NX + jx] * qub[u];
+      p = at + kt;
+      // kff, the same in every lane; lane u stores entry u.
+      float Lv[NTRU], inv[NU], sol[NU];
+#pragma unroll
+      for (int e = 0; e < NTRU; ++e) Lv[e] = R[L::OL + e];
+#pragma unroll
+      for (int i = 0; i < NU; ++i) {
+        inv[i] = 1.f / Lv[tri(i, i)];
+        sol[i] = qub[i];
+      }
+      chol_solve_inv<NU>(Lv, inv, sol);
+      if (lane < NU) st(a.kff, kv, lane, NU, B, b, -pick<NU>(sol, lane));
+    };
+
+#pragma unroll 1
+    for (int k = N - 1; k >= 0; --k) {
+      float* R = slots + k * L::SLOT;
+      if (pa) {
+        const float qb = R[L::OQB + i1];
+        float t1 = 0.f;
+#pragma unroll
+        for (int m = 0; m < NX; ++m) {
+          const float pm = m == i1 ? P[i1 * PX + m] + qb : P[i1 * PX + m];
+          t1 = keep((mcol >> m) & 1u, fmaf(pm, R[mbase + m * mstride], t1), t1);
+        }
+        PAm[i1 * NC + j1] = t1;
+      } else if (pc) {
+        float v = 0.f;
+#pragma unroll
+        for (int m = 0; m < NX; ++m)
+          v = fmaf(m == jc ? P[jc * PX + m] + R[L::OQB + jc] : P[jc * PX + m], R[L::ORD + m], v);
+        R[L::OP + jc] = v;
+        st(a.Pc, k, jc, NX, B, b, v);
+      }
+      bar_sync(1, CT);
+      if (d2 >= 0) {
+        float t2 = 0.f;
+#pragma unroll
+        for (int m = 0; m < NX; ++m) {
+          t2 = keep((m2 >> m) & 1u, fmaf(R[base2 + m * stride2], PAm[m * NC + s2], t2), t2);
+        }
+        smem[d2] = t2;
+      } else if (w == L::WQ) {
+        float qe = 0.f;
+#pragma unroll
+        for (int m = 0; m < NX; ++m) {
+          qe = keep((mq >> m) & 1u, fmaf(R[L::OB + iq + m * NU], PAm[m * NC + NX + jq], qe), qe);
+        }
+        qe = iq == jq ? qe + R[L::ORB + jq] : qe;
+        float q[NU][NU], Lv[NTRU], inv[NU];
+#pragma unroll
+        for (int i = 0; i < NU; ++i)
+#pragma unroll
+          for (int jj = 0; jj <= i; ++jj) q[i][jj] = __shfl_sync(0xffffffffu, qe, tri(i, jj));
+        chol_factor_warp<NU>(q, Lv, inv, lane);
+        if (lane < NTRU) {
+          const float l = pick<NTRU>(Lv, lane);
+          R[L::OL + lane] = l;
+          st(a.L, k, lane, NTRU, B, b, l);
+        }
+        if (lane < NU) INV[lane] = pick<NU>(inv, lane);
+      } else if (w == L::WV && k < N - 1) {
+        vector(k + 1);
+      }
+      bar_sync(1, CT);
+      if (p3) {
+        float Lv[NTRU], inv[NU], kc[NU];
+#pragma unroll
+        for (int e = 0; e < NTRU; ++e) Lv[e] = R[L::OL + e];
+#pragma unroll
+        for (int u = 0; u < NU; ++u) {
+          inv[u] = INV[u];
+          kc[u] = QX[u * NX + j3];
+        }
+        chol_solve_inv<NU>(Lv, inv, kc);
+#pragma unroll
+        for (int u = 0; u < NU; ++u) kc[u] = -kc[u];
+        float t3 = 0.f;
+#pragma unroll
+        for (int u = 0; u < NU; ++u) t3 += QX[u * NX + i3] * kc[u];
+        const float pn = APA[i3 * NX + j3] + t3;
+        P[i3 * PX + j3] = pn;
+        P[j3 * PX + i3] = pn;
+        if (i3 == j3) {
+#pragma unroll
+          for (int u = 0; u < NU; ++u) {
+            R[L::OK + u * NX + j3] = kc[u];
+            st(a.K, k, u * NX + j3, NU * NX, B, b, kc[u]);
+          }
+        }
+      }
+      bar_sync(1, CT);
+    }
+    if (w == L::WV) vector(0);
+  } else {
+    // ---- Sum s*lam, folded as bwd_fused_kernel's producers fold it: lane
+    // fp takes position fp of each chunk of BwdPlan's SC stages, from the
+    // horizon's end; then the lanes' sums in order.
+    constexpr int SC = BwdPlan<C>::SC;
+    static_assert(SC <= 32, "a lane a chunk position");
+    const int fp = tid - CT;
+    float mu = 0.f;
+    if (fp < SC) {
+      const int nch = (N + SC - 1) / SC;
+#pragma unroll 1
+      for (int q = 0; q < nch; ++q) {
+        const int k = N - q * SC - 1 - fp;
+        if (k < max(0, N - (q + 1) * SC)) continue;
+        Groups<C> s, l;
+        s.load(a.s, k, B, b);
+        l.load(a.l, k, B, b);
+#pragma unroll
+        for (int jb = 0; jb < NBX; ++jb)
+          mu = mu + s.x[0][jb] * l.x[0][jb] + s.x[1][jb] * l.x[1][jb];
+#pragma unroll
+        for (int jb = 0; jb < NBU; ++jb)
+          mu = mu + s.u[0][jb] * l.u[0][jb] + s.u[1][jb] * l.u[1][jb];
+      }
+    }
+    float m = __shfl_sync(0xffffffffu, mu, 0);
+#pragma unroll
+    for (int r = 1; r < SC; ++r) m = m + __shfl_sync(0xffffffffu, mu, r);
+    if (fp == 0) a.musum[b] = m;
+  }
+}
+
+// ---- Forward sweeps, one lane ----------------------------------------------
+
+// Shared memory of fwd_lane, in floats, each region 16-byte aligned: the
+// rollout's operands (A, B packed, K, kff, r_dyn), the four bound groups of
+// s, lambda, rp (and corr), the rollout's dx (N + 1 rows, the first r_init)
+// and du, and for the affine sweep each bound entry's ds and dl.
+template <class C, bool CORR>
+struct FwdLane {
+  static constexpr int NX = C::NX, NU = C::NU, NBX = C::IDXBX::size, NBU = C::IDXBU::size;
+  static constexpr int G = 2 * (NBX + NBU);  // bound entries of a stage
+  static constexpr int THREADS = 256, WARPS = THREADS / 32;
+  struct Layout {
+    int A, Bm, K, kff, rd, grp[4][4], X, U, DS, DL, RED, total;
+    __host__ __device__ constexpr Layout(int N)
+        : A(0), Bm(0), K(0), kff(0), rd(0), grp{}, X(0), U(0), DS(0), DL(0), RED(0), total(0) {
+      int o = 0;
+      auto take = [&o](int n) {
+        const int r = o;
+        o += round4(n);
+        return r;
+      };
+      A = take(N * C::A::count());
+      Bm = take(N * C::B::count());
+      K = take(N * NU * NX);
+      kff = take(N * NU);
+      rd = take(N * NX);
+      for (int v = 0; v < (CORR ? 4 : 3); ++v)  // s, lambda, rp, corr
+        for (int g = 0; g < 4; ++g) grp[v][g] = take(N * (g < 2 ? NBX : NBU));
+      X = take((N + 1) * NX);
+      U = take(N * NU);
+      DS = take(CORR ? 0 : N * G);
+      DL = take(CORR ? 0 : N * G);
+      RED = take(2 * WARPS);
+      total = o;
+    }
+  };
+  __host__ __device__ static constexpr int floats(int N) { return Layout(N).total; }
+};
+
+template <class C, bool CORR>
+__device__ __forceinline__ void fwd_lane(FwdArgs a, int N, int B, float tau) {
+  using S = Shape<C>;
+  using F = FwdLane<C, CORR>;
+  using PA = typename C::A;
+  using PB = typename C::B;
+  constexpr int NX = S::NX, NU = S::NU, NBX = S::NBX, NBU = S::NBU, G = F::G, T = F::THREADS;
+  extern __shared__ __align__(16) float smem[];
+  const typename F::Layout Y(N);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, b = blockIdx.x;
+  float* X = smem + Y.X;
+  float* U = smem + Y.U;
+  auto grp = [&](int v, int g) { return smem + Y.grp[v][g]; };
+
+  // The rollout's operands first, in a group of their own, so that the
+  // rollout starts while the bound entries' operands arrive.
+  copy_lane(smem + Y.A, a.A, N * S::NNZA, B, b, tid, T);
+  copy_lane(smem + Y.Bm, a.Bm, N * S::NNZB, B, b, tid, T);
+  copy_lane(smem + Y.K, a.K, N * NU * NX, B, b, tid, T);
+  copy_lane(smem + Y.kff, a.kff, N * NU, B, b, tid, T);
+  copy_lane(smem + Y.rd, a.rdyn, N * NX, B, b, tid, T);
+  copy_lane(X, a.r_init, NX, B, b, tid, T);
+  cp_async_commit();
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    const int n = N * (g < 2 ? NBX : NBU);
+    copy_lane(grp(0, g), a.s.g[g], n, B, b, tid, T);
+    copy_lane(grp(1, g), a.l.g[g], n, B, b, tid, T);
+    copy_lane(grp(2, g), a.rp.g[g], n, B, b, tid, T);
+    if constexpr (CORR) copy_lane(grp(3, g), a.corr.g[g], n, B, b, tid, T);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  if (warp == 0) {
+    // ---- The rollout: lane i owns du_i = kff_i + K_i dx, then dx'_i = r_dyn_i
+    // + A_i dx + B_i du, as fwd_kernel's rollout.  Lanes past NU (NX) repeat
+    // lane NU - 1's (NX - 1's) work; nothing reads theirs.  A stage's
+    // operands are read one stage ahead.
+    const int ru = min(lane, NU - 1), rx = min(lane, NX - 1);
+    int offA[NX], offB[NU];
+    line_offsets<PA, NX, NX, true>(rx, offA);
+    line_offsets<PB, NX, NU, true>(rx, offB);
+    struct Ops {
+      float K[NX], kff, rd, a[NX], b[NU];
+    };
+    auto load = [&](int k) {
+      Ops o;
+#pragma unroll
+      for (int m = 0; m < NX; ++m) o.K[m] = smem[Y.K + (k * NU + ru) * NX + m];
+      o.kff = smem[Y.kff + k * NU + ru];
+      o.rd = smem[Y.rd + k * NX + rx];
+      load_line(o.a, smem + Y.A + k * S::NNZA, offA);
+      load_line(o.b, smem + Y.Bm + k * S::NNZB, offB);
+      return o;
+    };
+    float dxi = X[rx];
+    Ops cur = load(0);
+#pragma unroll 2
+    for (int k = 0; k < N; ++k) {
+      const Ops nxt = load(min(k + 1, N - 1));
+      float dx[NX], du[NU];
+      gather<NX>(dx, dxi);
+      float t = 0.f;
+#pragma unroll
+      for (int m = 0; m < NX; ++m) t += cur.K[m] * dx[m];
+      const float dui = cur.kff + t;
+      gather<NU>(du, dui);
+      t = cur.rd;
+      t += line_dot<NX>(cur.a, offA, dx);
+      t += line_dot<NU>(cur.b, offB, du);
+      dxi = t;
+      if (lane < NU) U[k * NU + lane] = dui;
+      if (lane < NX) X[(k + 1) * NX + lane] = t;
+      cur = nxt;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // ---- Every stage's bound entries at once: item (k, part), part 0 the x
+  // bounds at dx_{k+1}, part 1 the u bounds at du_k, as fwd_kernel's fanout.
+  float sm = 0.f;
+  if constexpr (CORR) sm = __ldg(a.sigma_mu + b);
+  float mpart = kBig, fin = 1.f;
+#pragma unroll 1
+  for (int it = tid; it < 2 * N; it += T) {
+    const int k = it < N ? it : it - N;
+    auto entry = [&](int v, int g, int nb, int j) { return grp(v, g)[k * nb + j]; };
+    auto item = [&](int g, int nb, int j, int q, float dz) {
+      float ds, dl;
+      FwdCarry cr{kBig, 0.f, 0.f, 1.f};
+      fwd_delta<CORR>(entry(0, g, nb, j), entry(1, g, nb, j), entry(2, g, nb, j),
+                      CORR ? entry(3, g, nb, j) : 0.f, sm, dz, (g & 1) == 0 ? 1.f : -1.f, cr,
+                      ds, dl);
+      mpart = min_nan(mpart, cr.m);
+      if constexpr (CORR) {
+        fin *= cr.fin;
+        st(a.ds.g[g], k, j, nb, B, b, ds);
+        st(a.dl.g[g], k, j, nb, B, b, dl);
+      } else {
+        st(a.prod.g[g], k, j, nb, B, b, ds * dl);
+        smem[Y.DS + k * G + q] = ds;
+        smem[Y.DL + k * G + q] = dl;
+      }
+    };
+    if (it < N) {
+      if constexpr (CORR) {
+#pragma unroll
+        for (int i = 0; i < NX; ++i) {
+          const float xn = X[(k + 1) * NX + i];
+          st(a.ddx, k, i, NX, B, b, X[k * NX + i]);
+          fin *= finite1(xn);
+          if (k == N - 1) st(a.ddx_N, 0, i, NX, B, b, xn);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NBX; ++j)
+#pragma unroll
+        for (int g = 0; g < 2; ++g)
+          item(g, NBX, j, 2 * j + g, X[(k + 1) * NX + C::IDXBX::at(j)]);
+    } else {
+      if constexpr (CORR) {
+#pragma unroll
+        for (int i = 0; i < NU; ++i) {
+          const float u = U[k * NU + i];
+          st(a.ddu, k, i, NU, B, b, u);
+          fin *= finite1(u);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NBU; ++j)
+#pragma unroll
+        for (int g = 0; g < 2; ++g)
+          item(2 + g, NBU, j, 2 * NBX + 2 * j + g, U[k * NU + C::IDXBU::at(j)]);
+    }
+  }
+  // The step's least ratio and the finiteness flag over the block.
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) {
+    mpart = min_nan(mpart, __shfl_xor_sync(0xffffffffu, mpart, o));
+    fin *= __shfl_xor_sync(0xffffffffu, fin, o);
+  }
+  if (lane == 0) {
+    smem[Y.RED + warp] = mpart;
+    smem[Y.RED + F::WARPS + warp] = fin;
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  float m = smem[Y.RED];
+  fin = smem[Y.RED + F::WARPS];
+#pragma unroll
+  for (int w = 1; w < F::WARPS; ++w) {
+    m = min_nan(m, smem[Y.RED + w]);
+    fin *= smem[Y.RED + F::WARPS + w];
+  }
+  if constexpr (CORR) {
+    if (lane == 0) {
+      a.alpha[b] = min_nan(1.f, tau * m);
+      a.finite[b] = fin;
+    }
+  } else {
+    // c1 and c2 folded as fwd_kernel's fan-out threads fold them: lane fs
+    // takes stage fs of each chunk of FwdPlan's S stages, then the lanes'
+    // sums in order.
+    constexpr int SC = FwdPlan<C>::S;
+    static_assert(SC <= 32, "a lane a chunk position");
+    float c1 = 0.f, c2 = 0.f;
+    if (lane < SC) {
+#pragma unroll 1
+      for (int k = lane; k < N; k += SC) {
+        auto fold = [&](int g, int nb, int j, int q) {
+          const float s = grp(0, g)[k * nb + j], lam = grp(1, g)[k * nb + j];
+          const float ds = smem[Y.DS + k * G + q], dl = smem[Y.DL + k * G + q];
+          // fwd_delta's sums, but ds * dl rounded before the add: in
+          // fwd_kernel that product is also stored (prod), and a product with
+          // a use other than an add is not fused into it.
+          c1 = c1 + s * dl + lam * ds;
+          c2 = c2 + __fmul_rn(ds, dl);
+        };
+#pragma unroll
+        for (int j = 0; j < NBX; ++j)
+#pragma unroll
+          for (int g = 0; g < 2; ++g) fold(g, NBX, j, 2 * j + g);
+#pragma unroll
+        for (int j = 0; j < NBU; ++j)
+#pragma unroll
+          for (int g = 0; g < 2; ++g) fold(2 + g, NBU, j, 2 * NBX + 2 * j + g);
+      }
+    }
+    float s1 = __shfl_sync(0xffffffffu, c1, 0), s2 = __shfl_sync(0xffffffffu, c2, 0);
+#pragma unroll
+    for (int r = 1; r < SC; ++r) {
+      s1 = s1 + __shfl_sync(0xffffffffu, c1, r);
+      s2 = s2 + __shfl_sync(0xffffffffu, c2, r);
+    }
+    if (lane == 0) {
+      a.alpha[b] = min_nan(1.f, tau * m);
+      a.c12[b] = s1;
+      a.c12[B + b] = s2;
+    }
+  }
+}
+
+// ---- Backward vector sweeps, one lane --------------------------------------
+
+// Shared memory of bwd_corr_lane (KKT false) and kkt_lane (KKT true): the
+// chain's operands (A, B packed; K for bwd_corr), what the prepare pass
+// leaves a stage (w = gx + Pc or gx, and gu), and bwd_corr's qu_bar or kkt's
+// s*lam terms.
+template <class C, bool KKT>
+struct VecLane {
+  static constexpr int NX = C::NX, NU = C::NU, NB = C::IDXBX::size + C::IDXBU::size;
+  static constexpr int THREADS = 256;
+  struct Layout {
+    int A, Bm, K, W, GU, V, total;
+    __host__ __device__ constexpr Layout(int N) : A(0), Bm(0), K(0), W(0), GU(0), V(0), total(0) {
+      int o = 0;
+      auto take = [&o](int n) {
+        const int r = o;
+        o += round4(n);
+        return r;
+      };
+      A = take(N * C::A::count());
+      Bm = take(N * C::B::count());
+      K = take(KKT ? 0 : N * NU * NX);
+      W = take(N * NX);
+      GU = take(N * NU);
+      V = take(N * (KKT ? NB : NU));
+      total = o;
+    }
+  };
+  __host__ __device__ static constexpr int floats(int N) { return Layout(N).total; }
+};
+
+template <class C>
+__device__ __forceinline__ void bwd_corr_lane(BwdCorrArgs a, int N, int B) {
+  using S = Shape<C>;
+  using F = VecLane<C, false>;
+  using PA = typename C::A;
+  using PB = typename C::B;
+  constexpr int NX = S::NX, NU = S::NU, NBX = S::NBX, NBU = S::NBU, NTRU = S::NTRU, T = F::THREADS;
+  extern __shared__ __align__(16) float smem[];
+  const typename F::Layout Y(N);
+  const int tid = threadIdx.x, b = blockIdx.x;
+  const float sm = __ldg(a.sigma_mu + b);
+
+  copy_lane(smem + Y.A, a.A, N * S::NNZA, B, b, tid, T);
+  copy_lane(smem + Y.Bm, a.Bm, N * S::NNZB, B, b, tid, T);
+  copy_lane(smem + Y.K, a.K, N * NU * NX, B, b, tid, T);
+  cp_async_commit();
+  // Every stage's w = gx + Pc and gu, as bwd_corr_kernel's prepare.
+#pragma unroll 1
+  for (int k = tid; k < N; k += T) {
+    float Pc[NX], Qdn[NX], qxn[NX], dxn[NX], Rd[NU], qu[NU], du[NU];
+    load_vec(Pc, a.Pc, k, B, b);
+    load_vec(Qdn, a.Qd, k + 1, B, b);
+    load_vec(qxn, a.qx, k + 1, B, b);
+    load_vec(dxn, a.dx, k + 1, B, b);
+    load_vec(Rd, a.Rd, k, B, b);
+    load_vec(qu, a.qu, k, B, b);
+    load_vec(du, a.du, k, B, b);
+    Groups<C> s, l, rp, co;
+    s.load(a.s, k, B, b);
+    l.load(a.l, k, B, b);
+    rp.load(a.rp, k, B, b);
+    co.load(a.corr, k, B, b);
+    float lex[2][NBX], leu[2][NBU];
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+#pragma unroll
+      for (int j = 0; j < NBX; ++j)
+        lex[g][j] = (sm - co.x[g][j]) / s.x[g][j] - (l.x[g][j] / s.x[g][j]) * rp.x[g][j];
+#pragma unroll
+      for (int j = 0; j < NBU; ++j)
+        leu[g][j] = (sm - co.u[g][j]) / s.u[g][j] - (l.u[g][j] / s.u[g][j]) * rp.u[g][j];
+    }
+    float gx[NX], gu[NU];
+    grad_terms<C>(Qdn, qxn, dxn, Rd, qu, du, lex, leu, gx, gu);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) smem[Y.W + k * NX + i] = gx[i] + Pc[i];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) smem[Y.GU + k * NU + i] = gu[i];
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  if (tid < 32) {
+    // ---- The chain, lane i owning p_i: tmp = p + w, qu_bar = gu + B' tmp,
+    // p <- A' tmp + K' qu_bar, as bwd_corr_kernel's step.  Lanes past NX
+    // repeat lane NX - 1's work; nothing reads theirs.  A stage's operands
+    // are read one stage ahead.
+    const int i = tid, ix = min(i, NX - 1);
+    int offA[NX];
+    line_offsets<PA, NX, NX, false>(ix, offA);
+    struct Ops {
+      float Bm[NX][NU], a[NX], kc[NU], gu[NU], w;
+    };
+    auto load = [&](int k) {
+      Ops o;
+      load_packed_smem<PB, NX, NU, 1>(o.Bm, smem + Y.Bm + k * S::NNZB);
+      load_line(o.a, smem + Y.A + k * S::NNZA, offA);
+#pragma unroll
+      for (int m = 0; m < NU; ++m) {
+        o.kc[m] = smem[Y.K + (k * NU + m) * NX + ix];
+        o.gu[m] = smem[Y.GU + k * NU + m];
+      }
+      o.w = smem[Y.W + k * NX + ix];
+      return o;
+    };
+    float p = 0.f;
+    Ops cur = load(N - 1);
+#pragma unroll 2
+    for (int k = N - 1; k >= 0; --k) {
+      const Ops nxt = load(max(k - 1, 0));
+      float tmp[NX], qub[NU];
+      gather<NX>(tmp, p + cur.w);
+#pragma unroll
+      for (int u = 0; u < NU; ++u) qub[u] = cur.gu[u] + col_dot<PB>(cur.Bm, u, tmp);
+      float kt = 0.f;
+#pragma unroll
+      for (int m = 0; m < NU; ++m) kt += cur.kc[m] * qub[m];
+      p = line_dot<NX>(cur.a, offA, tmp) + kt;
+      if (i < NU) smem[Y.V + k * NU + i] = pick<NU>(qub, i);
+      cur = nxt;
+    }
+  }
+  __syncthreads();
+  // ---- Every stage's kff = -(L L')^{-1} qu_bar, as bwd_corr_kernel's finish.
+#pragma unroll 1
+  for (int k = tid; k < N; k += T) {
+    float L[NTRU], x[NU];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+#pragma unroll
+      for (int j = 0; j <= i; ++j) L[tri(i, j)] = ld(a.L, k, tri(i, j), NTRU, B, b);
+      x[i] = smem[Y.V + k * NU + i];
+    }
+    chol_solve<NU>(L, x);
+#pragma unroll
+    for (int i = 0; i < NU; ++i) st(a.kff, k, i, NU, B, b, -x[i]);
+  }
+}
+
+template <class C>
+__device__ __forceinline__ void kkt_lane(KKTArgs a, int N, int B) {
+  using S = Shape<C>;
+  using F = VecLane<C, true>;
+  using PA = typename C::A;
+  using PB = typename C::B;
+  constexpr int NX = S::NX, NU = S::NU, NBX = S::NBX, NBU = S::NBU, NB = F::NB, T = F::THREADS;
+  extern __shared__ __align__(16) float smem[];
+  const typename F::Layout Y(N);
+  const int tid = threadIdx.x, b = blockIdx.x;
+
+  copy_lane(smem + Y.A, a.A, N * S::NNZA, B, b, tid, T);
+  copy_lane(smem + Y.Bm, a.Bm, N * S::NNZB, B, b, tid, T);
+  cp_async_commit();
+  // Every stage's gx and gu, and its s*lam term of each bound entry, as
+  // kkt_kernel's prepare.
+#pragma unroll 1
+  for (int k = tid; k < N; k += T) {
+    float Qdn[NX], qxn[NX], dxn[NX], Rd[NU], qu[NU], du[NU];
+    load_vec(Qdn, a.Qd, k + 1, B, b);
+    load_vec(qxn, a.qx, k + 1, B, b);
+    load_vec(dxn, a.dx, k + 1, B, b);
+    load_vec(Rd, a.Rd, k, B, b);
+    load_vec(qu, a.qu, k, B, b);
+    load_vec(du, a.du, k, B, b);
+    Groups<C> l, s;
+    l.load(a.l, k, B, b);
+    s.load(a.s, k, B, b);
+    float gx[NX], gu[NU];
+    grad_terms<C>(Qdn, qxn, dxn, Rd, qu, du, l.x, l.u, gx, gu);
+#pragma unroll
+    for (int j = 0; j < NBX; ++j)
+      smem[Y.V + k * NB + j] = s.x[0][j] * l.x[0][j] + s.x[1][j] * l.x[1][j];
+#pragma unroll
+    for (int j = 0; j < NBU; ++j)
+      smem[Y.V + k * NB + NBX + j] = s.u[0][j] * l.u[0][j] + s.u[1][j] * l.u[1][j];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) smem[Y.W + k * NX + i] = gx[i];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) smem[Y.GU + k * NU + i] = gu[i];
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  if (tid < 32) {
+    // ---- The chain, lane i owning c_i: nu = gx + c, max |gu + B' nu|, c <-
+    // A' nu, as kkt_kernel's step.
+    // Lanes past NX repeat lane NX - 1's work; nothing reads theirs.  A
+    // stage's operands are read one stage ahead.
+    const int i = tid, ix = min(i, NX - 1);
+    int offA[NX];
+    line_offsets<PA, NX, NX, false>(ix, offA);
+    struct Ops {
+      float Bm[NX][NU], a[NX], gu[NU], w;
+    };
+    auto load = [&](int k) {
+      Ops o;
+      load_packed_smem<PB, NX, NU, 1>(o.Bm, smem + Y.Bm + k * S::NNZB);
+      load_line(o.a, smem + Y.A + k * S::NNZA, offA);
+#pragma unroll
+      for (int u = 0; u < NU; ++u) o.gu[u] = smem[Y.GU + k * NU + u];
+      o.w = smem[Y.W + k * NX + ix];
+      return o;
+    };
+    float c = 0.f, m = 0.f;
+    Ops cur = load(N - 1);
+#pragma unroll 2
+    for (int k = N - 1; k >= 0; --k) {
+      const Ops nxt = load(max(k - 1, 0));
+      float nu_v[NX];
+      gather<NX>(nu_v, cur.w + c);
+#pragma unroll
+      for (int u = 0; u < NU; ++u)
+        m = max_nan(m, fabsf(cur.gu[u] + col_dot<PB>(cur.Bm, u, nu_v)));
+      c = line_dot<NX>(cur.a, offA, nu_v);
+      cur = nxt;
+    }
+    if (i == 0) a.kkt[b] = m;
+  } else if (tid < 64) {
+    // ---- Sum s*lam, folded as kkt_kernel's fan-out threads fold it: lane fs
+    // takes row fs of each chunk of VecPlan's S stages, from the horizon's
+    // end; then the lanes' sums in order.
+    constexpr int SC = VecPlan<C, true>::S;
+    static_assert(SC <= 32, "a lane a chunk position");
+    const int fs = tid - 32, nch = (N + SC - 1) / SC;
+    float mu = 0.f;
+    if (fs < SC) {
+#pragma unroll 1
+      for (int q = 0; q < nch; ++q) {
+        const int lo = max(0, N - (q + 1) * SC), hi = N - q * SC;
+        if (fs >= hi - lo) continue;
+#pragma unroll
+        for (int j = 0; j < NB; ++j) mu = mu + smem[Y.V + (lo + fs) * NB + j];
+      }
+    }
+    float s = __shfl_sync(0xffffffffu, mu, 0);
+#pragma unroll
+    for (int r = 1; r < SC; ++r) s = s + __shfl_sync(0xffffffffu, mu, r);
+    if (fs == 0) a.musum[b] = s;
+  }
+}
+
+// The plan a sweep of configuration C takes at horizon N over B lanes: one
+// lane a block while B is small and every one-lane layout fits the horizon.
+template <class C>
+struct LaneFit {
+  static constexpr int N_FIT =
+      std::min({lane_fit<BwdLane<C>>(), lane_fit<FwdLane<C, false>>(),
+                lane_fit<FwdLane<C, true>>(), lane_fit<VecLane<C, false>>(),
+                lane_fit<VecLane<C, true>>()});
+};
+
+template <class C>
+int plan_of(int N, int B) {
+  return B <= kOneLaneMaxB && N <= LaneFit<C>::N_FIT ? kOneLane : kBatched;
+}
+
+// --------------------------------------------------------------------------
 // Launchers: pointers arrive as an array, inputs then outputs, in the order
 // of the argument structs above (ops/ipm_fused.py builds it).
 // --------------------------------------------------------------------------
@@ -1185,10 +2255,18 @@ int launch_bwd_fused(void* const* ptrs, int n, int N, int B, float reg, float d_
   r.in(a.s); r.in(a.l); r.in(a.bnd);
   a.K = r.out(); a.L = r.out(); a.Pc = r.out(); a.rdyn = r.out(); a.kff = r.out();
   r.out(a.rp); a.musum = r.out();
+  if (plan_of<C>(N, B) == kOneLane) {
+    using L = BwdLane<C>;
+    static const int attr = smem_attr(bwd_fused_kernel<C, kOneLane>, kLaneSmemBytes);
+    if (attr != 0) return attr;
+    bwd_fused_kernel<C, kOneLane><<<B, L::THREADS, L::floats(N) * 4, stream>>>(a, N, B, reg,
+                                                                                d_cap);
+    return static_cast<int>(cudaGetLastError());
+  }
   using Pl = BwdPlan<C>;
-  static const int attr = smem_attr(bwd_fused_kernel<C>, Pl::SMEM);
+  static const int attr = smem_attr(bwd_fused_kernel<C, kBatched>, Pl::SMEM);
   if (attr != 0) return attr;
-  bwd_fused_kernel<C><<<(B + Pl::LANES - 1) / Pl::LANES, Pl::THREADS, Pl::SMEM, stream>>>(
+  bwd_fused_kernel<C, kBatched><<<(B + Pl::LANES - 1) / Pl::LANES, Pl::THREADS, Pl::SMEM, stream>>>(
       a, N, B, reg, d_cap);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1210,10 +2288,18 @@ int launch_fwd(void* const* ptrs, int n, int N, int B, float tau, cudaStream_t s
     r.out(a.prod);
     a.alpha = r.out(); a.c12 = r.out();
   }
+  if (plan_of<C>(N, B) == kOneLane) {
+    using L = FwdLane<C, CORR>;
+    static const int attr = smem_attr(fwd_kernel<C, kOneLane, CORR>, kLaneSmemBytes);
+    if (attr != 0) return attr;
+    fwd_kernel<C, kOneLane, CORR><<<B, L::THREADS, L::floats(N) * 4, stream>>>(a, N, B, tau);
+    return static_cast<int>(cudaGetLastError());
+  }
   using F = FwdPlan<C>;
-  static const int attr = smem_attr(fwd_kernel<C, CORR>, F::SMEM);
+  static const int attr = smem_attr(fwd_kernel<C, kBatched, CORR>, F::SMEM);
   if (attr != 0) return attr;
-  fwd_kernel<C, CORR><<<(B + F::TL - 1) / F::TL, F::THREADS, F::SMEM, stream>>>(a, N, B, tau);
+  fwd_kernel<C, kBatched, CORR><<<(B + F::TL - 1) / F::TL, F::THREADS, F::SMEM, stream>>>(a, N, B,
+                                                                                          tau);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1227,10 +2313,17 @@ int launch_bwd_corr(void* const* ptrs, int n, int N, int B, cudaStream_t stream)
   a.du = r.in();
   r.in(a.s); r.in(a.l); r.in(a.rp); r.in(a.corr); a.sigma_mu = r.in();
   a.kff = r.out();
+  if (plan_of<C>(N, B) == kOneLane) {
+    using L = VecLane<C, false>;
+    static const int attr = smem_attr(bwd_corr_kernel<C, kOneLane>, kLaneSmemBytes);
+    if (attr != 0) return attr;
+    bwd_corr_kernel<C, kOneLane><<<B, L::THREADS, L::floats(N) * 4, stream>>>(a, N, B);
+    return static_cast<int>(cudaGetLastError());
+  }
   using F = VecPlan<C, false>;
-  static const int attr = smem_attr(bwd_corr_kernel<C>, F::SMEM);
+  static const int attr = smem_attr(bwd_corr_kernel<C, kBatched>, F::SMEM);
   if (attr != 0) return attr;
-  bwd_corr_kernel<C><<<(B + F::TL - 1) / F::TL, F::THREADS, F::SMEM, stream>>>(a, N, B);
+  bwd_corr_kernel<C, kBatched><<<(B + F::TL - 1) / F::TL, F::THREADS, F::SMEM, stream>>>(a, N, B);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1243,10 +2336,17 @@ int launch_kkt(void* const* ptrs, int n, int N, int B, cudaStream_t stream) {
   a.Rd = r.in(); a.qu = r.in(); a.du = r.in();
   r.in(a.l); r.in(a.s);
   a.kkt = r.out(); a.musum = r.out();
+  if (plan_of<C>(N, B) == kOneLane) {
+    using L = VecLane<C, true>;
+    static const int attr = smem_attr(kkt_kernel<C, kOneLane>, kLaneSmemBytes);
+    if (attr != 0) return attr;
+    kkt_kernel<C, kOneLane><<<B, L::THREADS, L::floats(N) * 4, stream>>>(a, N, B);
+    return static_cast<int>(cudaGetLastError());
+  }
   using F = VecPlan<C, true>;
-  static const int attr = smem_attr(kkt_kernel<C>, F::SMEM);
+  static const int attr = smem_attr(kkt_kernel<C, kBatched>, F::SMEM);
   if (attr != 0) return attr;
-  kkt_kernel<C><<<(B + F::TL - 1) / F::TL, F::THREADS, F::SMEM, stream>>>(a, N, B);
+  kkt_kernel<C, kBatched><<<(B + F::TL - 1) / F::TL, F::THREADS, F::SMEM, stream>>>(a, N, B);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1272,7 +2372,8 @@ int launch_kkt(void* const* ptrs, int n, int N, int B, cudaStream_t stream) {
   extern "C" int ipm_kkt_fused_##name(void* const* p, int n, int N, int B, float, float,    \
                                       void* s) {                                             \
     return launch_kkt<Config>(p, n, N, B, static_cast<cudaStream_t>(s));                    \
-  }
+  }                                                                                          \
+  extern "C" int ipm_plan_##name(int N, int B) { return plan_of<Config>(N, B); }
 
 IPM_EXPORT(diff, DiffConfig)
 IPM_EXPORT(dense72, Dense72Config)

@@ -18,6 +18,10 @@ Each wrapper that launches a kernel adds one to that kernel's count in
 which kernels its main path went through; a CUDA graph that captures a
 wrapper's launch counts it once, at capture, and not at each replay.
 
+A kernel with launch plans (the IPM sweeps) also counts, in the same
+place, the plan its launcher chose: ``kernels.plan.<plan>`` in the
+telemetry counters (``launch``'s ``plan``), likewise once at capture.
+
 ``define_op`` registers a kernel as a ``torch.library`` custom op,
 ``nmpc_tpu::<kernel>`` (through ``torch.library.Library``, whose
 dispatch, which every eager call of a wrapper pays, is lighter than
@@ -178,11 +182,13 @@ def graph_nodes(raw_graph: int) -> int:
 
 
 def launch(kernel: str, config: str, tensors, N: int, B: int,
-           f0: float = 0.0, f1: float = 0.0) -> None:
+           f0: float = 0.0, f1: float = 0.0, plan: str | None = None) -> None:
     """Launch ``<kernel>_<config>`` on the current stream; raise on error.
 
     ``tensors``: inputs then outputs, in the order of the kernel's argument
     struct in its ``csrc/*.cu`` source; the caller has checked them.
+    ``plan``, where the kernel has launch plans, names the one its launcher
+    takes at (N, B).
     """
     lib = _load()
     name = f"{kernel}_{config}"
@@ -199,6 +205,8 @@ def launch(kernel: str, config: str, tensors, N: int, B: int,
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
     _counts[kernel] += 1
+    if plan is not None:
+        telemetry.metrics().counter(f"kernels.plan.{plan}").inc()
 
 
 def on_cuda(tensors) -> bool:
@@ -239,7 +247,7 @@ def use_op(tensors, impl: str) -> bool:
     return use_kernel(tensors, impl) or (traced(tensors) and not on_cuda(tensors))
 
 
-def define_op(name: str, io, plain):
+def define_op(name: str, io, plain, plan=None):
     """Register kernel ``name`` as the op ``nmpc_tpu::<name>``
     (``OP_SCHEMA``) and return it.
 
@@ -251,13 +259,15 @@ def define_op(name: str, io, plain):
     the plain version, copying out an output that shares memory with an
     input or another output (a plain version's layout change that moved no
     data, at B=1), which an op may not return; its fake gives the outputs'
-    shapes."""
+    shapes.  ``plan(config, N, B)``, where given, names the launch plan the
+    kernel's launcher takes, for ``launch`` to count."""
     def cuda(key, ins, f0, f1):
         N, B, inputs, outputs, config = io(key, ins)
         config = config()
         check([(n, t, shape) for (n, shape), t in zip(inputs, ins)])
         outs = [ins[0].new_empty(shape) for shape in outputs]
-        launch(name, config, [*ins, *outs], N, B, f0, f1)
+        launch(name, config, [*ins, *outs], N, B, f0, f1,
+               None if plan is None else plan(config, N, B))
         return outs
 
     def cpu(key, ins, f0, f1):

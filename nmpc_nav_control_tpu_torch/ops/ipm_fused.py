@@ -27,7 +27,10 @@ hand-written kernel in ``csrc/ipm_fused.cu`` (its header says how each
 kernel splits a lane's stages over threads; f32 only), on CPU tensors it
 runs the plain torch version beside it, and under a tracer its fake gives
 the outputs' shapes, so an exported tick holds one node per sweep
-(``runtime/aot.py``).  An op takes the ``SweepConfig`` as its key string
+(``runtime/aot.py``).  Each kernel has two launch plans, a few lanes to a
+block (batched) or a block to a lane (one_lane), which its launcher picks
+from N and B by one rule, ``ipm_plan_<config>`` in the library (``plan``);
+each launch counts its plan in ``kernels.plan.<plan>``.  An op takes the ``SweepConfig`` as its key string
 and its operands as one flat list, in the order of the kernel's argument
 struct, and returns a flat list that the wrapper nests again.  Each wrapper
 routes by its ``impl`` argument and the device (``ops._build.use_op``):
@@ -47,6 +50,7 @@ They also run in f64.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import json
@@ -73,6 +77,7 @@ __all__ = [
     "kkt_fused_plain",
     "KERNELS",
     "OPS",
+    "plan",
 ]
 
 _BIG = 3.4e38
@@ -600,6 +605,21 @@ def _nest(cls, flat):
                  for f in cls._fields))
 
 
+# The launch plans, in the order of csrc/ipm_fused.cu's kBatched, kOneLane.
+PLANS = ("batched", "one_lane")
+
+
+@functools.lru_cache(maxsize=None)
+def plan(config: str, N: int, B: int) -> str:
+    """The launch plan of every sweep of compiled specialisation ``config``
+    at horizon N over B lanes: the library's rule ``ipm_plan_<config>``,
+    which the launchers follow (needs the built library)."""
+    fn = getattr(_build._load(), f"ipm_plan_{config}")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return PLANS[fn(N, B)]
+
+
 def _define(name, io, plain):
     """``ops._build.define_op`` for a sweep, whose key is its
     ``SweepConfig``; ``plain(cfg, ins, f0, f1)`` runs the plain version on a
@@ -609,7 +629,7 @@ def _define(name, io, plain):
         return (*io(cfg, ins), lambda: cfg.cuda_config)
 
     return _build.define_op(name, op_io, lambda key, ins, f0, f1:
-                            _flat(plain(SweepConfig.from_key(key), ins, f0, f1)))
+                            _flat(plain(SweepConfig.from_key(key), ins, f0, f1)), plan=plan)
 
 
 OPS = {

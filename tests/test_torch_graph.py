@@ -38,7 +38,10 @@ installed):
   every lane an idle node;
 - a tick artifact exported for the card (``runtime/aot.py``), loaded,
   equals a ``GraphedNavigator`` bit for bit on both routes, its capture
-  launching one controller tick's kernels.
+  launching one controller tick's kernels;
+- a captured B=1 navigation tick counts its 33 IPM sweeps under
+  ``kernels.plan.one_lane`` and a captured B=2048 controller tick under
+  ``kernels.plan.batched``, each launch once.
 """
 import ast
 import collections
@@ -58,10 +61,12 @@ from nmpc_nav_control_tpu_torch.control import (
     controller_step,
     make_controller,
 )
+from nmpc_nav_control_tpu_torch.control import graph as control_graph
 from nmpc_nav_control_tpu_torch.control import state_machine as sm
 from nmpc_nav_control_tpu_torch.paths import make_line_segment
 from nmpc_nav_control_tpu_torch.ops import _build
 from nmpc_nav_control_tpu_torch.ops import riccati_fused as rf
+from nmpc_nav_control_tpu_torch.utils import telemetry
 
 torch.set_num_threads(1)
 
@@ -504,3 +509,33 @@ def test_aot_tick_on_the_card(cuda_device, route, monkeypatch):
             assert g.dtype == w.dtype and torch.equal(g, w)
     assert tick.capture_launches == PER_TICK[route]
     assert bool(out.solve_ok.all())
+
+
+@pytest.mark.gpu
+def test_capture_counts_each_launch_plan(cuda_device, monkeypatch):
+    """The sweeps' launch plan follows the batch: a captured B=1 navigation
+    tick (the single-robot node's) counts its 33 IPM launches under
+    ``kernels.plan.one_lane`` and none under ``kernels.plan.batched``, a
+    captured B=2048 controller tick the reverse; a capture counts each
+    launch once, its warm-up ticks' too, as ``launch_counts()`` does, and a
+    replay counts nothing."""
+    monkeypatch.setenv("NMPC_TPU_TILED_IPM", "1")
+    spec, data = make_controller("diff", 0.025, 80, **GEOMETRIES["diff"])
+    counters = telemetry.metrics()
+
+    def plans():
+        return {p: counters.counter(f"kernels.plan.{p}").value for p in ("one_lane", "batched")}
+
+    per_tick = sum(PER_TICK["1"].values())
+    ticks = control_graph.WARMUP_TICKS + 1
+    nav = GraphedNavigator(spec, data, sm.NavConfig(), 1)
+    ctl = GraphedController(spec, data, 2048)
+    ctl.load_inputs(*_inputs(2048, 80, torch.float32, cuda_device))
+    for graphed, plan in ((nav, "one_lane"), (ctl, "batched")):
+        before = plans()
+        assert sum(graphed.capture().values()) == per_tick == 33
+        after = plans()
+        assert {p: after[p] - before[p] for p in after} == {
+            p: per_tick * ticks if p == plan else 0 for p in after}, plan
+        graphed._replay()
+        assert plans() == after

@@ -15,10 +15,16 @@ on the CPU: ``opcheck``, its outputs equal to the plain version's bit for
 bit, and one node in an exported program.
 
 The ``gpu`` tests hold each CUDA kernel against its plain version on the
-card and skip where there is none.  JAX is imported only by the fixture that
+card and skip where there is none, on both launch plans (a few lanes to a
+block, or a block to a lane; the library's rule picks one from N and B):
+at the rule's edges in lanes and in horizon, the one-lane plan against the
+batched plan to the bit on one lane, and the non-finite lanes one at a time
+through the one-lane plan.  JAX is imported only by the fixture that
 needs it, so the ``gpu`` tests also run where JAX is not installed (with
 ``--noconftest``, since ``tests/conftest.py`` imports JAX).
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -217,16 +223,17 @@ def _nonfinite_args(x, conv):
     return bwd, aff, aff + (g["corr"], g["sigma_mu"])
 
 
-def _assert_same_nonfinite(got, want, name):
+def _assert_same_nonfinite(got, want, name, lanes=None):
     """NaN, +Inf and -Inf in the same places; finite values within rtol
     1e-4 / atol 1e-5, but rtol 1e-3 on the floor lane, whose deltas are
-    lambda/s = 2e10 times rollout values that f32 rounds at ~6e-8."""
+    lambda/s = 2e10 times rollout values that f32 rounds at ~6e-8.
+    ``lanes``: the set's lane of each entry of the last axis (default: the
+    whole set, in order)."""
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64).reshape(np.shape(got))
     for what, f in (("NaN", np.isnan), ("+Inf", np.isposinf), ("-Inf", np.isneginf)):
         np.testing.assert_array_equal(f(got), f(want), err_msg=f"{name}: {what} placement")
-    rtol = np.full(got.shape[-1], RTOL)
-    if got.shape[-1] > FLOOR_LANE:
-        rtol[FLOOR_LANE] = 1e-3
+    lanes = np.arange(got.shape[-1]) if lanes is None else np.asarray(lanes)
+    rtol = np.where(lanes == FLOOR_LANE, 1e-3, RTOL)
     ok = np.isfinite(want)
     tol = ATOL + rtol * np.abs(np.where(ok, want, 0.0))
     bad = ok & ~(np.abs(np.where(ok, got, 0.0) - np.where(ok, want, 0.0)) <= tol)
@@ -476,17 +483,77 @@ def _gpu_cfg(pattern):
     return tp.SweepConfig(NX, NU, IDXBX, IDXBU, *PATTERNS[pattern])
 
 
+def _plan_edges(cfg):
+    """(max_b, n_fit): the most lanes (at N=1) and the longest horizon (at
+    B=1) that the library's rule gives the one-lane plan."""
+    def last(one_lane):
+        lo, hi = 1, 4096
+        assert one_lane(lo) and not one_lane(hi)
+        while lo + 1 < hi:
+            mid = (lo + hi) // 2
+            lo, hi = (mid, hi) if one_lane(mid) else (lo, mid)
+        return lo
+
+    name = cfg.cuda_config
+    return (last(lambda b: tp.plan(name, 1, b) == "one_lane"),
+            last(lambda n: tp.plan(name, n, 1) == "one_lane"))
+
+
+def _at_edge(cfg, v):
+    """An int as it is; "max_b", "n_fit" (plus "+1") from the rule."""
+    if isinstance(v, int):
+        return v
+    max_b, n_fit = _plan_edges(cfg)
+    name, _, plus = v.partition("+")
+    return {"max_b": max_b, "n_fit": n_fit}[name] + int(plus or 0)
+
+
+def _sweep_chain(cfg, a):
+    """name -> (wrapper, its inputs, keywords, plain version) for the five
+    sweeps on device inputs ``a``; each sweep after the first takes the plain
+    versions' outputs."""
+    bwd = (a["A"], a["Bm"], a["Qd"], a["Rd"], a["qx"], a["qu"], a["c"], a["dx"], a["du"],
+           a["s"], a["lam"], a["bnd"])
+    ref = tp.bwd_fused_plain(cfg, *bwd, reg=REG, d_cap=D_CAP)
+    fwd = (a["A"], a["Bm"], ref.K, ref.kff, ref.rdyn, a["r_init"], a["s"], a["lam"], ref.rp)
+    aff = tp.fwd_affine_plain(cfg, *fwd, tau=TAU)
+    corr = tuple(aff.alpha * c for c in aff.corr)
+    bc = (a["A"], a["Bm"], ref.K, ref.L, ref.Pc, a["Qd"], a["qx"], a["dx"], a["Rd"],
+          a["qu"], a["du"], a["s"], a["lam"], ref.rp, corr, a["sigma_mu"])
+    fc = fwd[:3] + (tp.bwd_corr_plain(cfg, *bc),) + fwd[4:] + (corr, a["sigma_mu"])
+    kk = (a["A"], a["Bm"], a["Qd"], a["qx"], a["dx"], a["Rd"], a["qu"], a["du"],
+          a["lam"], a["s"])
+    return {"ipm_bwd_fused": (tp.ipm_bwd_fused, bwd, dict(reg=REG, d_cap=D_CAP),
+                              tp.bwd_fused_plain),
+            "ipm_fwd_affine": (tp.ipm_fwd_affine, fwd, dict(tau=TAU), tp.fwd_affine_plain),
+            "ipm_bwd_corr": (tp.ipm_bwd_corr, bc, {}, tp.bwd_corr_plain),
+            "ipm_fwd_corr": (tp.ipm_fwd_corr, fc, dict(tau=TAU), tp.fwd_corr_plain),
+            "ipm_kkt_fused": (tp.ipm_kkt_fused, kk, {}, tp.kkt_fused_plain)}
+
+
+def _leaves(out):
+    """A sweep's outputs as (name, tensor) pairs."""
+    if isinstance(out, torch.Tensor):
+        return [("kff_c", out)]
+    return [(f"{name}[{i}]", t) for name, v in zip(out._fields, out)
+            for i, t in enumerate(v if isinstance(v, tuple) else (v,))]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shifted", [False, True])
 @pytest.mark.parametrize("pattern", [*PATTERNS, "omni4"])
-@pytest.mark.parametrize("horizon", [1, 13, 40, 80])
-@pytest.mark.parametrize("lanes", [1, 17, 1000, 2048])
+@pytest.mark.parametrize("lanes,horizon", [
+    *itertools.product([1, 17, 1000, 2048, "max_b", "max_b+1"], [1, 13, 40, 80]),
+    (1, "n_fit"), (1, "n_fit+1")])
 def test_cuda_sweeps_match_plain(cuda_device, lanes, horizon, pattern, shifted):
     """Every sweep kernel against its plain version on the card; 17 lanes are
     ragged and break 16-byte alignment of the batch rows, ``shifted`` inputs
     start 4 bytes past a 16-byte boundary, and 13 stages are no multiple of
-    any sweep's chunk of stages."""
+    any sweep's chunk of stages.  "max_b" and "n_fit" are the rule's edges:
+    the most lanes and the longest horizon of the one-lane plan, and one
+    past each, where the batched plan takes over."""
     cfg = _gpu_cfg(pattern)
+    lanes, horizon = _at_edge(cfg, lanes), _at_edge(cfg, horizon)
     x = random_sweep_inputs(cfg.nx, cfg.nu, cfg.nbx, cfg.nbu, cfg.asp, cfg.bsp, horizon,
                             lanes, seed=5)
 
@@ -500,31 +567,94 @@ def test_cuda_sweeps_match_plain(cuda_device, lanes, horizon, pattern, shifted):
         return t
 
     a = {k: dev(v) for k, v in x.items()}
-    bwd_args = (a["A"], a["Bm"], a["Qd"], a["Rd"], a["qx"], a["qu"], a["c"],
-                a["dx"], a["du"], a["s"], a["lam"], a["bnd"])
-    ref = tp.bwd_fused_plain(cfg, *bwd_args, reg=REG, d_cap=D_CAP)
-    got = tp.ipm_bwd_fused(cfg, *bwd_args, reg=REG, d_cap=D_CAP)
-    torch.cuda.synchronize()
-    _compare_cuda(got, ref)
-    fwd = (a["A"], a["Bm"], ref.K, ref.kff, ref.rdyn, a["r_init"], a["s"], a["lam"], ref.rp)
-    aff = tp.fwd_affine_plain(cfg, *fwd, tau=TAU)
-    _compare_cuda(tp.ipm_fwd_affine(cfg, *fwd, tau=TAU), aff)
-    corr = tuple(aff.alpha * c for c in aff.corr)
-    bc = (a["A"], a["Bm"], ref.K, ref.L, ref.Pc, a["Qd"], a["qx"], a["dx"], a["Rd"],
-          a["qu"], a["du"], a["s"], a["lam"], ref.rp, corr, a["sigma_mu"])
-    kffc = tp.bwd_corr_plain(cfg, *bc)
-    torch.testing.assert_close(tp.ipm_bwd_corr(cfg, *bc), kffc, rtol=RTOL, atol=ATOL)
-    fc = fwd[:3] + (kffc,) + fwd[4:] + (corr, a["sigma_mu"])
-    _compare_cuda(tp.ipm_fwd_corr(cfg, *fc, tau=TAU), tp.fwd_corr_plain(cfg, *fc, tau=TAU))
-    kk = (a["A"], a["Bm"], a["Qd"], a["qx"], a["dx"], a["Rd"], a["qu"], a["du"],
-          a["lam"], a["s"])
-    _compare_cuda(tp.ipm_kkt_fused(cfg, *kk), tp.kkt_fused_plain(cfg, *kk))
+    for name, (kern, args, kw, plain) in _sweep_chain(cfg, a).items():
+        got, want = kern(cfg, *args, **kw), plain(cfg, *args, **kw)
+        torch.cuda.synchronize()
+        for (what, g), (_, w) in zip(_leaves(got), _leaves(want)):
+            torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL, msg=f"{name} {what}")
 
 
-def _compare_cuda(got, ref):
-    for name, g, r in zip(ref._fields, got, ref):
-        for gi, ri in zip(*((g, r) if isinstance(r, tuple) else ((g,), (r,)))):
-            torch.testing.assert_close(gi, ri, rtol=RTOL, atol=ATOL, msg=name)
+def _same_bits(got, want, what):
+    """NaN in the same places, every other entry the same 32 bits."""
+    assert got.shape == want.shape, what
+    nan = got.isnan()
+    assert torch.equal(nan, want.isnan()), f"{what}: NaN placement"
+    bits = [torch.where(nan, 0, t.view(torch.int32)).long() for t in (got, want)]
+    apart = (bits[0] - bits[1]).abs()
+    assert int(apart.max()) == 0, f"{what}: {int((apart > 0).sum())} entries differ, " \
+                                  f"up to {int(apart.max())} ulp"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", [*PATTERNS, "omni4"])
+@pytest.mark.parametrize("horizon", [13, 80])
+def test_cuda_one_lane_plan_matches_batched(cuda_device, horizon, pattern):
+    """Every sweep on one lane's inputs at B=1, where the rule takes the
+    one-lane plan, and again at B = max_b + 1, where it takes the batched
+    plan, with that lane as lane 0 among random others: lane 0's outputs are
+    the same to the bit (both plans sum each entry over the same terms in
+    the same order, and fold the per-lane sums in the same chunks, each
+    multiply-add fused where the batched plan's is).  No switch: the batch
+    alone picks the plan."""
+    cfg = _gpu_cfg(pattern)
+    wide = _plan_edges(cfg)[0] + 1
+    assert tp.plan(cfg.cuda_config, horizon, 1) == "one_lane"
+    assert tp.plan(cfg.cuda_config, horizon, wide) == "batched"
+    x = random_sweep_inputs(cfg.nx, cfg.nu, cfg.nbx, cfg.nbu, cfg.asp, cfg.bsp, horizon, wide,
+                            seed=7)
+    a = {k: tuple(_t(t).to(cuda_device) for t in v) if isinstance(v, tuple)
+         else _t(v).to(cuda_device) for k, v in x.items()}
+
+    def lane0(v):
+        if isinstance(v, tuple):
+            return tuple(lane0(t) for t in v)
+        return v[..., :1].contiguous()
+
+    for name, (kern, args, kw, _) in _sweep_chain(cfg, a).items():
+        batched, one = kern(cfg, *args, **kw), kern(cfg, *lane0(args), **kw)
+        torch.cuda.synchronize()
+        for (what, b), (_, o) in zip(_leaves(batched), _leaves(one)):
+            _same_bits(o, lane0(b), f"{name} {what}")
+
+
+@pytest.mark.gpu
+def test_cuda_nonfinite_lanes_one_lane_plan(cuda_device):
+    """The non-finite sets of ``test_cuda_nonfinite_lanes_match_plain``, each
+    faulty lane alone at B=1, so through the one-lane plan: NaN and Inf in
+    the same places as the plain versions, and alpha, finite, c12, kkt and
+    musum of each lane what that lane must show."""
+    cfg = tp.SweepConfig(NX, NU, IDXBX, IDXBU, *DIFF_SP)
+    assert tp.plan(cfg.cuda_config, N, 1) == "one_lane"
+
+    def run(x, lanes, build, kernels):
+        """Per kernel, its outputs over ``lanes`` (one launch a lane), each
+        scattered back to its lane of a [..., B] array of zeros."""
+        outs = None
+        for lane in lanes:
+            args = build(x, lambda v: _t(v[..., lane:lane + 1]).to(cuda_device))
+            outs = outs or [{} for _ in kernels(args)]
+            for out, (kern, plain, a, kw) in zip(outs, kernels(args)):
+                got, want = kern(cfg, *a, **kw), plain(cfg, *a, **kw)
+                torch.cuda.synchronize()
+                for (what, g), (_, w) in zip(_leaves(got), _leaves(want)):
+                    g, w = g.cpu().numpy(), w.cpu().numpy()
+                    _assert_same_nonfinite(g, w, f"{kern.__name__} {what} lane {lane}", [lane])
+                    full = out.setdefault(what, np.zeros(g.shape[:-1] + (B,), g.dtype))
+                    full[..., lane] = g[..., 0]
+        return outs
+
+    lanes = (INF_LANE, NAN_S_LANE, FLOOR_LANE, NAN_KFF_LANE)
+    bwd, aff, fc = run(_nonfinite_set(cfg, N, B), lanes, _nonfinite_args, lambda args: (
+        (tp.ipm_bwd_fused, tp.bwd_fused_plain, args[0], dict(reg=REG, d_cap=D_CAP)),
+        (tp.ipm_fwd_affine, tp.fwd_affine_plain, args[1], dict(tau=TAU)),
+        (tp.ipm_fwd_corr, tp.fwd_corr_plain, args[2], dict(tau=TAU))))
+    _check_nonfinite_semantics(dict(musum=bwd["musum[0]"]), dict(alpha=aff["alpha[0]"]),
+                               dict(alpha=fc["alpha[0]"], finite=fc["finite[0]"]))
+    lanes = (NAN_CORR_LANE, NAN_LAM_LANE, NAN_S_LANE, INF_QX_LANE, FLOOR_LANE)
+    bc, kk = run(_vector_set(cfg, N, B), lanes, _vector_args, lambda args: (
+        (tp.ipm_bwd_corr, tp.bwd_corr_plain, args[0], {}),
+        (tp.ipm_kkt_fused, tp.kkt_fused_plain, args[1], {})))
+    _check_vector_semantics(bc["kff_c"], kk["kkt[0]"], kk["musum[0]"])
 
 
 @pytest.mark.gpu
